@@ -1,0 +1,3 @@
+from . import colmap  # noqa: F401
+from .camera import Camera, build_camera  # noqa: F401
+from .dataset import CameraDataset, prepare_dataset  # noqa: F401

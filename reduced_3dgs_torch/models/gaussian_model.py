@@ -1,0 +1,158 @@
+"""Gaussian point-cloud model (counterpart of
+reduced_3dgs_tpu/models/gaussian_model.py:58-410).
+
+Raw parameters are ``nn.Parameter``s: ``_xyz [N,3]``, ``_features_dc
+[N,1,3]``, ``_features_rest [N,M,3]``, ``_scaling [N,3]`` (log),
+``_rotation [N,4]`` (unnormalised) and ``_opacity [N,1]`` (logit).
+``forward(camera)`` renders through the tiled pipeline. PLY files use the
+standard 3DGS layout, so the JAX package reads what this writes and the
+other way round.
+"""
+from __future__ import annotations
+
+import math
+import os
+from collections import OrderedDict
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..dataset.camera import Camera
+from ..ops.rasterize.common import RenderSettings
+from ..ops.rasterize.tiled import render_tiled
+from ..utils.device import resolve_device
+from . import ply as plyio
+
+PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
+
+
+class GaussianModel(nn.Module):
+    """Standard 3DGS model (max SH degree ``sh_degree``, default 3)."""
+
+    def __init__(self, sh_degree: int = 3, device="cuda"):
+        super().__init__()
+        self.max_sh_degree = int(sh_degree)
+        self.active_sh_degree = int(sh_degree)
+        self.scale_modifier = 1.0
+        self.device = resolve_device(device)
+        n_rest = (self.max_sh_degree + 1) ** 2 - 1
+        shapes = dict(xyz=(0, 3), features_dc=(0, 1, 3), features_rest=(0, n_rest, 3),
+                      scaling=(0, 3), rotation=(0, 4), opacity=(0, 1))
+        for name in PARAM_NAMES:
+            setattr(self, f"_{name}",
+                    nn.Parameter(torch.zeros(shapes[name], device=self.device)))
+
+    # --- activations -------------------------------------------------------
+    @property
+    def get_scaling(self):
+        return torch.exp(self._scaling)
+
+    @property
+    def get_rotation(self):
+        """q * rsqrt(|q|^2 + 1e-24): finite value and gradient at q = 0."""
+        rot = self._rotation
+        return rot * torch.rsqrt(torch.sum(rot * rot, dim=-1, keepdim=True) + 1e-24)
+
+    @property
+    def num_points(self) -> int:
+        return int(self._xyz.shape[0])
+
+    def param_dict(self) -> Dict[str, torch.Tensor]:
+        """The raw parameters by their JAX-package names."""
+        return {name: getattr(self, f"_{name}") for name in PARAM_NAMES}
+
+    def masked_features(self) -> torch.Tensor:
+        """[N, 1+M, 3] SH features as the renderer reads them."""
+        return torch.cat([self._features_dc, self._features_rest], dim=1)
+
+    # --- parameters from outside --------------------------------------------
+    def load_numpy(self, params: Dict[str, np.ndarray], degrees=None):
+        """Set the parameters from the JAX package's parameter dict (the six
+        arrays of ``GaussianModel.parameters()``, as numpy). ``degrees`` is
+        used by models with per-Gaussian SH degrees and ignored here."""
+        del degrees
+        for name in PARAM_NAMES:
+            value = torch.tensor(np.asarray(params[name], np.float32), device=self.device)
+            setattr(self, f"_{name}", nn.Parameter(value))
+        return self
+
+    # --- rendering ----------------------------------------------------------
+    def render_settings(self, camera: Camera) -> RenderSettings:
+        return RenderSettings(
+            image_height=camera.image_height,
+            image_width=camera.image_width,
+            tanfovx=math.tan(camera.FoVx * 0.5),
+            tanfovy=math.tan(camera.FoVy * 0.5),
+            bg=camera.bg_color,
+            scale_modifier=self.scale_modifier,
+            viewmatrix=camera.world_view_transform,
+            projmatrix=camera.full_proj_transform,
+            campos=camera.camera_center,
+            sh_degree=self.active_sh_degree,
+        )
+
+    def render_array_args(self):
+        """Renderer inputs: means, opacity logits, scales, rotations, SH."""
+        return (self._xyz, self._opacity, self.get_scaling, self.get_rotation,
+                self.masked_features())
+
+    def forward(self, camera: Camera) -> dict:
+        """Render the model from ``camera``; see ``render_tiled`` for the
+        output dict."""
+        return render_tiled(*self.render_array_args(), self.render_settings(camera))
+
+    # --- PLY I/O (standard 3DGS layout) -------------------------------------
+    def ply_arrays(self):
+        n = self.num_points
+
+        def host(t):
+            return t.detach().cpu().numpy().astype(np.float32)
+
+        xyz = host(self._xyz)
+        f_dc = host(self._features_dc).reshape(n, -1)
+        # 3DGS stores f_rest channel-major: all of channel 0, then 1, then 2.
+        f_rest = host(self._features_rest).transpose(0, 2, 1).reshape(n, -1)
+        return (xyz, f_dc, f_rest, host(self._opacity), host(self._scaling),
+                host(self._rotation))
+
+    def save_ply(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        xyz, f_dc, f_rest, opacities, scale, rotation = self.ply_arrays()
+        n = xyz.shape[0]
+        fields = OrderedDict()
+        fields["x"], fields["y"], fields["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+        for nm in ["nx", "ny", "nz"]:
+            fields[nm] = np.zeros(n, np.float32)
+        for i in range(f_dc.shape[1]):
+            fields[f"f_dc_{i}"] = f_dc[:, i]
+        for i in range(f_rest.shape[1]):
+            fields[f"f_rest_{i}"] = f_rest[:, i]
+        fields["opacity"] = opacities[:, 0]
+        for i in range(scale.shape[1]):
+            fields[f"scale_{i}"] = scale[:, i]
+        for i in range(rotation.shape[1]):
+            fields[f"rot_{i}"] = rotation[:, i]
+        vertex = plyio.fields_to_struct(fields, list(fields.keys()))
+        plyio.write_ply(path, OrderedDict(vertex=vertex))
+
+    def load_ply(self, path: str):
+        v = plyio.read_ply(path)["vertex"]
+        n = len(v)
+        n_rest = (self.max_sh_degree + 1) ** 2 - 1
+        rest_names = sorted([nm for nm in v.dtype.names if nm.startswith("f_rest_")],
+                            key=lambda nm: int(nm.split("_")[-1]))
+        if rest_names:
+            f_rest = np.stack([v[nm] for nm in rest_names], axis=1).astype(np.float32)
+            f_rest = f_rest.reshape(n, 3, -1).transpose(0, 2, 1)
+        else:
+            f_rest = np.zeros((n, n_rest, 3), np.float32)
+        params = dict(
+            xyz=np.stack([v["x"], v["y"], v["z"]], axis=1),
+            features_dc=np.stack([v[f"f_dc_{i}"] for i in range(3)], axis=1)[:, None, :],
+            features_rest=f_rest,
+            opacity=v["opacity"][:, None],
+            scaling=np.stack([v[f"scale_{i}"] for i in range(3)], axis=1),
+            rotation=np.stack([v[f"rot_{i}"] for i in range(4)], axis=1))
+        return self.load_numpy(params)

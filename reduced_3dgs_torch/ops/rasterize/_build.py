@@ -1,0 +1,64 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each kernel is one source ``csrc/<name>.cu`` with a plain C launcher. It is
+compiled by nvcc for sm_90a into a shared library under
+``reduced_3dgs_torch/_build/`` (git-ignored) at first use, and loaded with
+ctypes. The library's file name carries a hash of its source and flags, so
+an edited source is rebuilt. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+# C signature of each kernel's launcher; every launcher returns a cudaError_t.
+ARGTYPES = {
+    # composite_fwd(e, K, range_start, range_end, num_tiles, tiles_x,
+    #               color4, final_t, latch, stream)
+    "composite_fwd": (_p, _i, _p, _p, _i, _i, _p, _p, _p, _p),
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, compiled first if it is not built yet,
+    with its launcher's argtypes set. Raises RuntimeError with nvcc's
+    output if the build fails."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(out)
+    fn = getattr(lib, name)
+    fn.argtypes = ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,176 @@
+"""Per-tile alpha compositing of depth-sorted entries (counterpart of
+reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:426-495, 724-773, 812-817).
+
+``composite_fwd`` is the forward compositor. On a CUDA tensor it launches
+the hand-written kernel ``csrc/composite_fwd.cu`` (which replaces the
+Pallas kernel ``_fwd_kernel``); on a CPU tensor it runs
+``composite_fwd_plain``, the same function in plain PyTorch, written as the
+JAX package's XLA path (log-space segmented scan). There is no fallback
+from one to the other.
+
+Entry fields are packed as rows of a [10, K] float32 matrix, in the JAX
+kernel's order: 0 x, 1 y, 2 conic A, 3 conic B, 4 conic C, 5 opacity,
+6 r, 7 g, 8 b, 9 depth. Tile t owns the sorted entries
+[range_start[t], range_end[t]); the ranges partition [0, K) in tile order.
+
+Per pixel, front to back: power = -0.5 (A dx^2 + C dy^2) - B dx dy,
+alpha = min(0.99, op e^power); an entry is skipped when power > 0 or
+alpha < 1/255; the first entry with T (1 - alpha) < 1e-4 latches the pixel
+and neither it nor any later entry contributes. Outputs per tile:
+color4 [T,256,4] (sum of w (r, g, b, depth), w = alpha T), final_T
+[T,256,1] and latch [T,256,1] int32, the sorted position of the latching
+entry or range_end[t] when the pixel never latches. An empty tile gives
+colour 0, T 1 and latch range_end[t].
+"""
+from __future__ import annotations
+
+import torch
+
+from ... import config
+
+N_FIELDS = 10
+# Pixels per step of the plain version: its [pixels, K] temporaries at the
+# bench scene (K ~ 0.6M entries) must fit on the card.
+_PIXEL_CHUNK = 32
+
+
+def pack_fields(pre) -> torch.Tensor:
+    """Per-Gaussian field matrix [10, N] in the kernel's row order."""
+    return torch.stack([
+        pre.means2d[:, 0], pre.means2d[:, 1], pre.conic[:, 0],
+        pre.conic[:, 1], pre.conic[:, 2], pre.opacity, pre.rgb[:, 0],
+        pre.rgb[:, 1], pre.rgb[:, 2], pre.depths], dim=0)
+
+
+def composite_fwd_plain(e: torch.Tensor, range_start: torch.Tensor,
+                        range_end: torch.Tensor, tiles_x: int):
+    """Plain PyTorch version of the forward compositor.
+
+    The JAX XLA path's formulation (tiled.py:516-563): per (pixel, entry)
+    the incoming transmittance is exp of the segment-local exclusive sum of
+    log(1 - alpha), and the latch is a segmented count of triggers. The sum
+    runs in float64: a float32 running sum over all K entries would lose
+    the segment-local values to cancellation at full-image K. Pixels go in
+    chunks of ``_PIXEL_CHUNK``, with entries on the last axis so that every
+    scan runs along contiguous memory.
+    """
+    device = e.device
+    K = e.shape[1]
+    T = range_start.shape[0]
+    P = config.BLOCK_SIZE
+    rs = range_start.to(torch.int64)
+    re = range_end.to(torch.int64)
+    seg = torch.repeat_interleave(torch.arange(T, device=device), re - rs, output_size=K)
+    seg_start = rs[seg]                                              # [K]
+    pos = torch.arange(K, device=device)
+    x, y, A, B, C, op, r, g, b, depth = e
+    tile_x = ((seg % tiles_x) * config.BLOCK_X).to(torch.float32)
+    tile_y = ((seg // tiles_x) * config.BLOCK_Y).to(torch.float32)
+
+    # Per (pixel, tile): sums of w r, w g, w b, w depth and log T.
+    sums = torch.zeros(P, T, 5, device=device)
+    latch = re.expand(P, T).contiguous()
+    for p0 in range(0, P, _PIXEL_CHUNK):
+        p = torch.arange(p0, min(p0 + _PIXEL_CHUNK, P), device=device)[:, None]
+        dx = x - (tile_x + (p % config.BLOCK_X).to(torch.float32))     # [p,K]
+        dy = y - (tile_y + (p // config.BLOCK_X).to(torch.float32))
+        power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+        # Gate before using exp(power): power > 0 can overflow.
+        gate = power <= 0.0
+        alpha = torch.clamp(op * torch.exp(torch.where(gate, power, torch.zeros_like(power))),
+                            max=config.ALPHA_MAX)
+        gate &= alpha >= config.ALPHA_EPS
+        abar = torch.where(gate, alpha, torch.zeros_like(alpha))
+        log1ma = torch.log1p(-abar)
+
+        lex = torch.cumsum(log1ma.double(), dim=1) - log1ma.double()  # exclusive
+        T_in = torch.exp((lex - lex[:, seg_start]).float())          # segment-local
+        trigger = gate & (T_in * (1.0 - abar) < config.T_EPS)
+        tcum_ex = torch.cumsum(trigger.to(torch.int32), dim=1) - trigger.to(torch.int32)
+        dead = (tcum_ex - tcum_ex[:, seg_start]) > 0
+        contrib = gate & ~trigger & ~dead
+
+        w = torch.where(contrib, abar * T_in, torch.zeros_like(abar))  # [p,K]
+        vals = torch.stack([w * r, w * g, w * b, w * depth,
+                            torch.where(contrib, log1ma, torch.zeros_like(log1ma))], dim=-1)
+        sums[p0:p0 + p.shape[0]].index_add_(1, seg, vals)
+        cand = torch.where(trigger & ~dead, pos, torch.full_like(pos, K))
+        latch[p0:p0 + p.shape[0]].scatter_reduce_(1, seg.expand_as(cand), cand, reduce="amin")
+    color4 = sums[..., :4].transpose(0, 1).contiguous()
+    final_t = torch.exp(sums[..., 4]).T.contiguous()[:, :, None]
+    return color4, final_t, latch.T.to(torch.int32).contiguous()[:, :, None]
+
+
+def _check_inputs(e, range_start, range_end):
+    if e.dtype != torch.float32 or e.dim() != 2 or e.shape[0] != N_FIELDS:
+        raise ValueError(f"e must be float32 [{N_FIELDS}, K], got {e.dtype} {tuple(e.shape)}")
+    for nm, t in (("range_start", range_start), ("range_end", range_end)):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"{nm} must be int32 [T], got {t.dtype} {tuple(t.shape)}")
+        if t.device != e.device:
+            raise ValueError(f"{nm} is on {t.device}, e on {e.device}")
+    if range_start.shape != range_end.shape:
+        raise ValueError("range_start and range_end differ in shape")
+
+
+def composite_fwd(e: torch.Tensor, range_start: torch.Tensor,
+                  range_end: torch.Tensor, tiles_x: int):
+    """Forward compositor: (color4 [T,256,4], final_T [T,256,1],
+    latch [T,256,1] int32) for sorted entries ``e`` [10, K].
+
+    CPU tensors go to ``composite_fwd_plain``. CUDA tensors launch the CUDA
+    kernel and add one to ``composite_fwd.launches``; any other device
+    raises."""
+    _check_inputs(e, range_start, range_end)
+    if e.device.type == "cpu":
+        return composite_fwd_plain(e, range_start, range_end, tiles_x)
+    if e.device.type != "cuda":
+        raise ValueError(f"composite_fwd runs on cpu or cuda tensors, not {e.device}")
+    for nm, t in (("e", e), ("range_start", range_start), ("range_end", range_end)):
+        if not t.is_contiguous():
+            raise ValueError(f"{nm} must be contiguous")
+    from ._build import load_library
+    lib = load_library("composite_fwd")
+    K = e.shape[1]
+    T = range_start.shape[0]
+    color4 = torch.empty((T, config.BLOCK_SIZE, 4), dtype=torch.float32, device=e.device)
+    final_t = torch.empty((T, config.BLOCK_SIZE, 1), dtype=torch.float32, device=e.device)
+    latch = torch.empty((T, config.BLOCK_SIZE, 1), dtype=torch.int32, device=e.device)
+    if T > 0:
+        with torch.cuda.device(e.device):
+            stream = torch.cuda.current_stream(e.device).cuda_stream
+            err = lib.composite_fwd(
+                e.data_ptr(), K, range_start.data_ptr(), range_end.data_ptr(),
+                T, tiles_x, color4.data_ptr(), final_t.data_ptr(), latch.data_ptr(),
+                stream)
+        if err != 0:
+            raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error {err}")
+        composite_fwd.launches += 1
+    return color4, final_t, latch
+
+
+composite_fwd.launches = 0
+
+
+class CompositeSorted(torch.autograd.Function):
+    """Differentiable compositing straight from per-Gaussian fields
+    (counterpart of ``composite_sorted``): gathers the sorted entries
+    ``fields10[:, s_gidx]`` and runs ``composite_fwd``.
+
+    apply(fields10 [10,N], s_gidx [K], range_start [T], range_end [T],
+    tiles_x) -> (color4 [T,256,4], final_T [T,256,1]). It saves the entry
+    buffer, final_T and the latch, which the backward compositor reads."""
+
+    @staticmethod
+    def forward(ctx, fields10, s_gidx, range_start, range_end, tiles_x):
+        e = fields10.index_select(1, s_gidx).contiguous()
+        color4, final_t, latch = composite_fwd(e, range_start, range_end, tiles_x)
+        ctx.save_for_backward(e, range_start, range_end, final_t, latch)
+        ctx.tiles_x = tiles_x
+        return color4, final_t
+
+    @staticmethod
+    def backward(ctx, g_color4, g_t):
+        raise NotImplementedError(
+            "the backward compositor (kernel B3, tile_composite_bwd) is ported "
+            "in slice 2 of the PyTorch port; render under torch.no_grad()")

@@ -1,0 +1,20 @@
+"""Loss and metric helpers (counterpart of reduced_3dgs_tpu/utils/math.py)."""
+from __future__ import annotations
+
+import torch
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(a - b))
+
+
+def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean((a - b) ** 2)
+
+
+def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """Per-channel PSNR of two [C, H, W] images, shape [C, 1]."""
+    c = img1.shape[0]
+    m = torch.mean((img1.reshape(c, -1) - img2.reshape(c, -1)) ** 2,
+                   dim=1, keepdim=True)
+    return 20.0 * torch.log10(1.0 / torch.sqrt(torch.clamp(m, min=1e-12)))

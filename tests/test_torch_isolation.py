@@ -1,0 +1,81 @@
+"""The PyTorch port stands alone: no JAX at import time, no quiet CPU
+fallback, no kernel launch for CPU tensors."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    """Import every module of the port with jax, flax and the JAX package
+    blocked; none of them may be needed or end up loaded."""
+    code = textwrap.dedent("""
+        import importlib, importlib.abc, pkgutil, sys
+        BLOCKED = ("jax", "jaxlib", "flax", "reduced_3dgs_tpu")
+        for name in list(sys.modules):
+            if name.split(".")[0] in BLOCKED:
+                del sys.modules[name]
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError("blocked import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import reduced_3dgs_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            reduced_3dgs_torch.__path__, "reduced_3dgs_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not loaded, loaded
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15  # every module was imported
+
+
+def test_render_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
+    from reduced_3dgs_torch.render import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["-s", str(tmp_path), "-d", str(tmp_path)])
+
+
+def test_composite_fwd_cpu_uses_plain_version():
+    from reduced_3dgs_torch.ops.rasterize import composite
+    e = torch.zeros((10, 3))
+    e[2] = e[4] = 1.0  # unit conic
+    e[5] = 0.5         # opacity
+    e[0] = e[1] = 3.0  # centred on pixel (3, 3) of tile 0
+    rs = torch.tensor([0, 3], dtype=torch.int32)
+    re = torch.tensor([3, 3], dtype=torch.int32)
+    before = composite.composite_fwd.launches
+    out = composite.composite_fwd(e, rs, re, tiles_x=2)
+    plain = composite.composite_fwd_plain(e, rs, re, tiles_x=2)
+    assert composite.composite_fwd.launches == before
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+    assert out[1][0, 3 * 16 + 3, 0] == pytest.approx(0.125)  # three blends of 0.5
+    assert out[1][1].eq(1).all() and out[0][1].eq(0).all()    # empty tile
+
+
+def test_composite_fwd_rejects_other_devices_and_bad_inputs():
+    from reduced_3dgs_torch.ops.rasterize import composite
+    rs = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        composite.composite_fwd(torch.zeros((10, 4), device="meta"), rs.to("meta"),
+                                rs.to("meta"), 1)
+    with pytest.raises(ValueError, match="float32"):
+        composite.composite_fwd(torch.zeros((9, 4)), rs, rs, 1)
+    with pytest.raises(ValueError, match="int32"):
+        composite.composite_fwd(torch.zeros((10, 4)), rs.long(), rs, 1)
