@@ -4,14 +4,24 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
   phase 0  card name, power limit and software versions
-  phase 1  build every CUDA kernel from the sources in the checkout
-  phase 2  the bench scene: 200,000 Gaussians at SH degree 3, 544x976
+  phase 1  build every CUDA kernel from the sources in the checkout, one
+           nvcc process per source, all at once
+  phase 2  the bench scene: 200,000 Gaussians at SH degree 3, 544x976, and
+           its perturbed copy (bench.py's perturbation)
   phase 3  each kernel against its plain PyTorch version on the card, on
-           the bench scene, an opaque scene and a fully culled scene
+           the bench scene, an opaque scene and a fully culled scene: the
+           forward compositor, the backward compositor (cotangents from a
+           real loss and random ones), and the SSIM gradient against float64
+           and against float32 on the CPU
   phase 4  the render entry point (reduced_3dgs_torch.render.main) on a
            4-view COLMAP dataset of the bench scene, with the kernels'
            launch counts read around it
-  phase 5  timing with CUDA events (median of 20 after warm-up)
+  phase 5  timing with CUDA events (median of 20 after warm-up): each
+           kernel and its plain version, a render and a training step with
+           their stage splits, and the device idle share under torch.profiler
+  phase 6  the training path: train.training() with a Trainer for 20 steps
+           on the 4-view dataset from the perturbed bench scene, with the
+           kernels' launch counts read around it
 
 Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
@@ -32,29 +42,49 @@ import torch
 N_GAUSSIANS = 200_000
 HEIGHT, WIDTH = 544, 976
 FOVX, FOVY = math.radians(70), math.radians(45)
+FOCAL_X, FOCAL_Y = WIDTH / (2 * math.tan(FOVX / 2)), HEIGHT / (2 * math.tan(FOVY / 2))
 N_VIEWS = 4
 REPEATS = 20
+TRAIN_STEPS = 20
+# Background of the camera whose loss gives the backward compositor's
+# cotangents: non-zero, so that the final_T cotangent is too.
+LOSS_BG = (0.2, 0.4, 0.6)
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
 # rate outside the tensor cores, at the 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# float32 operations every (pixel, entry) pair the compositor scans needs at
-# least: offsets (2), quadratic form (9), exp (1), gate (1).
+# float32 operations every (pixel, entry) pair the forward compositor scans
+# needs at least: offsets (2), quadratic form (9), exp (1), gate (1).
 OPS_PER_SCANNED_PAIR = 13
+# The backward compositor evaluates the same 13-operation gate on every
+# pair before each pixel's latch, and spends about 27 more on each pair that
+# passes it (T_in and w 3, c.g 7, d alpha-bar 4, dpower 2, the conic and
+# position partials 11).
+OPS_PER_CONTRIBUTING_PAIR = 27
 # Colour and final_T agree to 1e-4 and depth to 5e-4: the bars the JAX
 # package holds its own Pallas kernel to against its XLA path. The latch may
 # flip where T (1 - alpha) sits on 1e-4, between sequential and log-space
 # arithmetic, on at most 0.01% of pixels.
 TOL_COLOR, TOL_DEPTH, MAX_LATCH_MISMATCH_SHARE = 1e-4, 5e-4, 1e-4
+# Backward compositor vs its plain version, per gradient field: max |diff|
+# at most this share of the plain version's max |value| (the kernel replays
+# T by division, the plain version in log space, and sums in another order;
+# the worst field on the bench and opaque scenes sits near 9e-7).
+TOL_BWD_REL = 1e-5
+# SSIM gradient in float32 on the card vs the same on the CPU, as a share
+# of the float64 gradient's max |value| (see check_ssim_gradient).
+TOL_SSIM_GRAD_REL = 1e-5
 MIN_PSNR_DB = 40.0
+FIELDS = ("x", "y", "A", "B", "C", "op", "r", "g", "b", "depth")
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def bench_scene(seed=0, n=N_GAUSSIANS):
+def bench_scene(seed=0):
     """Raw parameters of the bench scene (bench.py's distribution) from numpy."""
+    n = N_GAUSSIANS
     rng = np.random.default_rng(seed)
     xyz = np.concatenate([rng.uniform(-1.2, 1.2, (n, 2)),
                           3.5 + rng.uniform(-1.5, 1.5, (n, 1))], axis=1)
@@ -67,6 +97,16 @@ def bench_scene(seed=0, n=N_GAUSSIANS):
         rotation=rng.normal(0.0, 0.1, (n, 4)) + np.array([1.0, 0.0, 0.0, 0.0]),
         opacity=rng.uniform(-2.0, 2.0, (n, 1)))
     return {k: v.astype(np.float32) for k, v in params.items()}
+
+
+def perturbed(params, seed=7):
+    """bench.py's perturbation of the parameters (its gradient gate): the
+    trained model starts here, the ground truth is the unperturbed scene."""
+    rng = np.random.default_rng(seed)
+    sigma = dict(xyz=0.01, features_dc=0.05, features_rest=0.02, scaling=0.1,
+                 rotation=0.02, opacity=0.2)
+    return {k: (v + sigma[k] * rng.normal(size=v.shape)).astype(np.float32)
+            for k, v in params.items()}
 
 
 def view_poses():
@@ -83,13 +123,22 @@ def view_poses():
     return poses
 
 
-def cuda_ms(fn, repeats=REPEATS, warmup=3):
-    """Median milliseconds of fn() over `repeats` runs, each between two CUDA
+def view_camera(pose, dev, bg_color=(0.0, 0.0, 0.0)):
+    """The HEIGHT x WIDTH camera at COLMAP pose (qvec, tvec)."""
+    from reduced_3dgs_torch.dataset.camera import build_camera, focal2fov
+    from reduced_3dgs_torch.dataset.colmap import qvec2rotmat
+    q, t = pose
+    return build_camera(HEIGHT, WIDTH, focal2fov(FOCAL_X, WIDTH), focal2fov(FOCAL_Y, HEIGHT),
+                        R=qvec2rotmat(q).T, T=t, bg_color=bg_color, device=dev)
+
+
+def cuda_ms(fn, warmup=3):
+    """Median milliseconds of fn() over REPEATS runs, each between two CUDA
     events, after `warmup` runs."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(repeats):
+    for _ in range(REPEATS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -99,27 +148,40 @@ def cuda_ms(fn, repeats=REPEATS, warmup=3):
     return statistics.median(times)
 
 
-def device_busy(model, camera, renders=5):
-    """Profile `renders` renders: (kernel launches per render, device busy
-    ms per render, wall ms per render, top kernels by device time). Busy is
-    the sum of device kernel and copy times on the one stream."""
+def device_busy(fn, calls=5):
+    """Profile `calls` calls of fn(): (device kernels and copies per call,
+    device busy ms per call, wall ms per call, top kernels by device time,
+    device ms per call of each kernel name). Busy is the sum of device
+    kernel and copy times on the one stream."""
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad():
-        model(camera)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(renders):
-                model(camera)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [a for a in prof.key_averages()
            if a.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(a.self_device_time_total for a in dev)
     top = sorted(dev, key=lambda a: -a.self_device_time_total)[:6]
-    return (sum(a.count for a in dev) / renders, busy_us / 1e3 / renders, wall_ms / renders,
-            [(a.key[:60], a.count // renders, a.self_device_time_total / 1e3 / renders)
-             for a in top])
+    by_name = {a.key: a.self_device_time_total / 1e3 / calls for a in dev}
+    return (sum(a.count for a in dev) / calls, busy_us / 1e3 / calls, wall_ms / calls,
+            [(a.key[:60], a.count // calls, a.self_device_time_total / 1e3 / calls)
+             for a in top], by_name)
+
+
+def print_busy(card, what, stats):
+    n_launch, busy_ms, wall_ms, top, _ = stats
+    if busy_ms > 0:
+        log(f"phase 5 [{card}]: under torch.profiler, per {what}: {n_launch:.0f} device "
+            f"kernels and copies, device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall "
+            f"(idle share {1 - busy_ms / wall_ms:.3f}); top: "
+            + "; ".join(f"{k} x{c} {ms:.4f} ms" for k, c, ms in top))
+    else:
+        log(f"phase 5: device busy share per {what} not measured (the profiler saw no "
+            "device time)")
 
 
 def sorted_entries(model, camera):
@@ -132,19 +194,19 @@ def sorted_entries(model, camera):
     ent = tiled.bin_and_sort(pre.rect_min, pre.rect_max, pre.tiles_touched, pre.depths,
                              tiles_x, tiles_y)
     e = pack_fields(pre).index_select(1, ent["s_gidx"]).contiguous()
-    return e, ent["range_start"], ent["range_end"], tiles_x, ent["num_rendered"]
+    return e, ent["range_start"], ent["range_end"], tiles_x, ent["num_rendered"], ent["s_gidx"]
 
 
 def compare_compositor(name, model, camera):
-    """Kernel against plain version on one scene; raises past the bars."""
+    """Forward kernel against plain version on one scene; raises past the bars."""
     from reduced_3dgs_torch.ops.rasterize.composite import composite_fwd, composite_fwd_plain
-    e, rs, re, tiles_x, k = sorted_entries(model, camera)
+    e, rs, re, tiles_x, k, s_gidx = sorted_entries(model, camera)
     kc, kt, kl = composite_fwd(e, rs, re, tiles_x)
     torch.cuda.synchronize()
     pc, pt, pl = composite_fwd_plain(e, rs, re, tiles_x)
     torch.cuda.synchronize()
-    d_color = float((kc[..., :3] - pc[..., :3]).abs().max())
-    d_depth = float((kc[..., 3] - pc[..., 3]).abs().max())
+    d_color = float((kc[..., :3] - pc[..., :3]).abs().max()) if k else 0.0
+    d_depth = float((kc[..., 3] - pc[..., 3]).abs().max()) if k else 0.0
     d_t = float((kt - pt).abs().max())
     mismatch = int((kl != pl).sum())
     n_pix = kl.numel()
@@ -159,17 +221,137 @@ def compare_compositor(name, model, camera):
     if mismatch > MAX_LATCH_MISMATCH_SHARE * n_pix:
         raise AssertionError(f"{name}: {mismatch} latch mismatches of {n_pix} pixels")
     return dict(k=k, max_abs_err=max(d_color, d_depth, d_t), latched=latched, empty=empty,
-                tiles=rs.numel(), inputs=(e, rs, re, tiles_x), latch=kl)
+                tiles=rs.numel(), inputs=(e, rs, re, tiles_x), latch=kl, final_t=kt,
+                color4=kc, s_gidx=s_gidx, n=model.num_points)
 
 
-def write_dataset(model, src, dst, cameras, poses, fx, fy):
+def loss_cotangents(model, camera, gt):
+    """(g_color4, g_T) of the training loss (0.8 L1 + 0.2 (1 - SSIM)) of
+    `model` against `gt` at `camera`, through the port's forward pipeline,
+    with the forward kernel's outputs as the leaves."""
+    from reduced_3dgs_torch.ops.rasterize import common, tiled
+    from reduced_3dgs_torch.ops.ssim import ssim
+    from reduced_3dgs_torch.utils.math import l1_loss
+    settings = model.render_settings(camera)
+    tiles_x, tiles_y = common.tile_grid(settings)
+    e, rs, re, _, k, s_gidx = sorted_entries(model, camera)
+    from reduced_3dgs_torch.ops.rasterize.composite import composite_fwd
+    color4, final_t, latch = composite_fwd(e, rs, re, tiles_x)
+    c4 = color4.clone().requires_grad_(True)
+    ft = final_t.clone().requires_grad_(True)
+    pre = common.preprocess(*model.render_array_args(), settings)
+    with torch.enable_grad():
+        img = tiled._assemble_outputs(c4, ft, pre, settings, tiles_x, tiles_y, HEIGHT, WIDTH,
+                                      k)["render"]
+        loss = 0.8 * l1_loss(img, gt) + 0.2 * (1.0 - ssim(img, gt))
+        g_c4, g_t = torch.autograd.grad(loss, (c4, ft))
+    return dict(inputs=(e, rs, re, tiles_x), final_t=final_t, latch=latch, s_gidx=s_gidx,
+                n=model.num_points, k=k, g_color4=g_c4.contiguous(), g_t=g_t.contiguous())
+
+
+def compare_backward(name, case, g_color4, g_t):
+    """Backward kernel against plain version on the forward kernel's own
+    buffers, per field, per entry [10,K] and per Gaussian [10,N]."""
+    from reduced_3dgs_torch.ops.rasterize.composite import composite_bwd, composite_bwd_plain
+    e, rs, re, tiles_x = case["inputs"]
+    args = (e, rs, re, tiles_x, case["final_t"], case["latch"], g_color4, g_t)
+    kg = composite_bwd(*args)
+    torch.cuda.synchronize()
+    pg = composite_bwd_plain(*args)
+    torch.cuda.synchronize()
+    n = case["n"]
+    kn = torch.zeros((10, n), device=e.device).index_add_(1, case["s_gidx"], kg)
+    pn = torch.zeros((10, n), device=e.device).index_add_(1, case["s_gidx"], pg)
+    worst, max_abs = 0.0, 0.0
+    parts = []
+    for level, (kv, pv) in (("entry", (kg, pg)), ("gaussian", (kn, pn))):
+        for f, fname in enumerate(FIELDS):
+            if kv.shape[1] == 0:
+                d = scale = 0.0
+            else:
+                d = float((kv[f] - pv[f]).abs().max())
+                scale = float(pv[f].abs().max())
+            if not math.isfinite(d):
+                raise AssertionError(f"{name}: non-finite backward gradient in {fname}")
+            rel = d / scale if scale > 0 else (0.0 if d == 0 else math.inf)
+            worst = max(worst, rel)
+            if level == "entry":
+                max_abs = max(max_abs, d)
+            parts.append(f"{level}/{fname} {d:.2e}/{scale:.2e}")
+    log(f"phase 3 [{name}]: composite_bwd vs plain, max|d|/max|plain| per field: "
+        + ", ".join(parts) + f"; worst ratio {worst:.3e} (bar {TOL_BWD_REL})")
+    if worst > TOL_BWD_REL:
+        raise AssertionError(f"{name}: composite_bwd disagrees with its plain version")
+    return dict(max_abs_err=max_abs, grads=kg, plain=pg)
+
+
+def backward_pairs(e, range_start, range_end, tiles_x, latch):
+    """(pairs, contributing) of the backward compositor on these inputs:
+    the (pixel, entry) pairs before each pixel's latch, whose gate it must
+    evaluate, and those of them that pass the gate (power <= 0 and
+    alpha >= 1/255) and so take the gradient arithmetic. Counted on the
+    card in chunks of 32 pixels, as composite_bwd_plain selects them."""
+    from reduced_3dgs_torch import config
+    K, T = e.shape[1], range_start.numel()
+    rs, re = range_start.long(), range_end.long()
+    lat = latch[..., 0].long()                                          # [T,256]
+    pairs = int((lat - rs[:, None]).clamp(min=0).sum())
+    seg = torch.repeat_interleave(torch.arange(T, device=e.device), re - rs, output_size=K)
+    pos = torch.arange(K, device=e.device)
+    tile_x = ((seg % tiles_x) * config.BLOCK_X).float()
+    tile_y = ((seg // tiles_x) * config.BLOCK_Y).float()
+    x, y, A, B, C, op = e[:6]
+    contributing = 0
+    for p0 in range(0, config.BLOCK_SIZE, 32):
+        p = torch.arange(p0, p0 + 32, device=e.device)[:, None]
+        dx = x - (tile_x + (p % config.BLOCK_X).float())
+        dy = y - (tile_y + (p // config.BLOCK_X).float())
+        power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+        alpha = torch.clamp(op * torch.exp(torch.clamp(power, max=0.0)), max=config.ALPHA_MAX)
+        live = (power <= 0.0) & (alpha >= config.ALPHA_EPS) & (pos < lat[:, p0:p0 + 32].T[:, seg])
+        contributing += int(live.sum())
+    return pairs, contributing
+
+
+def check_ssim_gradient(img, gt):
+    """The SSIM gradient on the card in float32 against the same float32
+    arithmetic on the CPU, where no convolution runs in TF32. float32 itself
+    is some 1e-5 to 1e-4 of the gradient's scale away from float64 (SSIM's
+    variances are differences of nearly equal moments), so the bar is on the
+    card-vs-CPU gap, which is what TF32 would widen; the float64 gaps of
+    both are printed beside it."""
+    from reduced_3dgs_torch.ops.ssim import ssim
+
+    def grad(x, y):
+        x = x.detach().clone().requires_grad_(True)
+        ssim(x, y).backward()
+        return x.grad
+
+    g_card = grad(img, gt)
+    g64 = grad(img.double(), gt.double())
+    g_cpu = grad(img.cpu(), gt.cpu()).to(img.device)
+    scale = g64.abs().max()
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max() / scale)
+
+    card_cpu = rel(g_card, g_cpu)
+    log(f"phase 3: SSIM gradient, max|d| / max|g float64| ({float(scale):.3e}): card float32 "
+        f"vs CPU float32 {card_cpu:.3e} (bar {TOL_SSIM_GRAD_REL}); card float32 vs float64 "
+        f"{rel(g_card, g64):.3e}; CPU float32 vs float64 {rel(g_cpu, g64):.3e}")
+    if not card_cpu <= TOL_SSIM_GRAD_REL:
+        raise AssertionError(f"SSIM gradient on the card off by {card_cpu:.3e} of its scale")
+    return card_cpu
+
+
+def write_dataset(model, src, dst, cameras, poses):
     """COLMAP text model, ground-truth PNGs rendered by the port, and the PLY."""
     from PIL import Image
     sparse = os.path.join(src, "sparse", "0")
     os.makedirs(sparse)
     os.makedirs(os.path.join(src, "images"))
     with open(os.path.join(sparse, "cameras.txt"), "w") as f:
-        f.write(f"1 PINHOLE {WIDTH} {HEIGHT} {fx!r} {fy!r} {WIDTH / 2} {HEIGHT / 2}\n")
+        f.write(f"1 PINHOLE {WIDTH} {HEIGHT} {FOCAL_X!r} {FOCAL_Y!r} {WIDTH / 2} {HEIGHT / 2}\n")
     with open(os.path.join(sparse, "points3D.txt"), "w") as f:
         f.write("1 0.0 0.0 3.5 128 128 128 0.1\n")
     with open(os.path.join(sparse, "images.txt"), "w") as f:
@@ -184,25 +366,38 @@ def write_dataset(model, src, dst, cameras, poses, fx, fy):
     model.save_ply(os.path.join(dst, "point_cloud", "iteration_1", "point_cloud.ply"))
 
 
+def card_name():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU",
               file=sys.stderr)
         return 2
+    with tempfile.TemporaryDirectory() as tmp:
+        return run(tmp)
+
+
+def run(tmp):
     from reduced_3dgs_torch import render
-    from reduced_3dgs_torch.dataset.camera import build_camera, focal2fov
-    from reduced_3dgs_torch.dataset.colmap import qvec2rotmat
+    from reduced_3dgs_torch.dataset.camera import build_camera
+    from reduced_3dgs_torch.dataset.dataset import CameraDataset, prepare_dataset
     from reduced_3dgs_torch.ops.rasterize import _build, common, tiled
-    from reduced_3dgs_torch.ops.rasterize.composite import (CompositeSorted, composite_fwd,
+    from reduced_3dgs_torch.ops.rasterize.composite import (CompositeSorted, composite_bwd,
+                                                            composite_bwd_plain, composite_fwd,
                                                             composite_fwd_plain, pack_fields)
     from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    from reduced_3dgs_torch.train import training
+    from reduced_3dgs_torch.trainer import Trainer
 
     dev = torch.device("cuda")
+    wrappers = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd}
     t_start = time.perf_counter()
     # ---------------------------------------------------------------- phase 0
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     log(card)
     log(f"phase 0: python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
@@ -210,6 +405,7 @@ def main():
 
     # ---------------------------------------------------------------- phase 1
     t0 = time.perf_counter()
+    _build.build_libraries(_build.ARGTYPES)
     for name in _build.ARGTYPES:
         _build.load_library(name)
     log(f"phase 1: built and loaded {sorted(_build.ARGTYPES)} in "
@@ -217,21 +413,21 @@ def main():
 
     # ---------------------------------------------------------------- phase 2
     params = bench_scene(0)
+    params_p = perturbed(params)
     model = VariableSHGaussianModel(3, device=dev).load_numpy(params)
-    fx, fy = WIDTH / (2 * math.tan(FOVX / 2)), HEIGHT / (2 * math.tan(FOVY / 2))
+    model_p = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
     poses = view_poses()
-    cameras = [build_camera(HEIGHT, WIDTH, focal2fov(fx, WIDTH), focal2fov(fy, HEIGHT),
-                            R=qvec2rotmat(q).T, T=t, device=dev) for q, t in poses]
+    cameras = [view_camera(pose, dev) for pose in poses]
+    loss_cam = view_camera(poses[0], dev, bg_color=LOSS_BG)
     log(f"phase 2: bench scene N={model.num_points} at {HEIGHT}x{WIDTH}, "
-        f"{N_VIEWS} views, SH degree {model.max_sh_degree}")
+        f"{N_VIEWS} views, SH degree {model.max_sh_degree}; perturbed copy for training")
 
     # ---------------------------------------------------------------- phase 3
     with torch.no_grad():
         bench = compare_compositor("bench", model, cameras[0])
         opaque_params = dict(params, opacity=np.full_like(params["opacity"], 8.0))
-        opaque = compare_compositor(
-            "opaque", VariableSHGaussianModel(3, device=dev).load_numpy(opaque_params),
-            cameras[0])
+        opaque_model = VariableSHGaussianModel(3, device=dev).load_numpy(opaque_params)
+        opaque = compare_compositor("opaque", opaque_model, cameras[0])
         if opaque["latched"] == 0:
             raise AssertionError("opaque scene: no pixel latched")
         culled_params = dict(params, xyz=params["xyz"] * np.float32(-1.0))
@@ -241,31 +437,61 @@ def main():
         if culled["k"] != 0 or culled["empty"] != culled["tiles"]:
             raise AssertionError("culled scene: expected every tile empty")
 
+        gt_loss = torch.clamp(model(loss_cam)["render"], 0, 1)
+        real = loss_cotangents(model_p, loss_cam, gt_loss)
+        if not real["g_t"].abs().max() > 0:
+            raise AssertionError("the loss cotangent of final_T is zero")
+        gen = torch.Generator(device=dev).manual_seed(11)
+
+        def random_cotangents(case):
+            t = case["inputs"][1].numel()
+            return (torch.randn((t, 256, 4), device=dev, generator=gen),
+                    torch.randn((t, 256, 1), device=dev, generator=gen))
+
+        bwd_real = compare_backward("bench, loss cotangents", real, real["g_color4"],
+                                    real["g_t"])
+        bwd_rand = compare_backward("bench, random cotangents", bench,
+                                    *random_cotangents(bench))
+        bwd_opaque = compare_backward("opaque, random cotangents", opaque,
+                                      *random_cotangents(opaque))
+        bwd_culled = compare_backward("culled, random cotangents", culled,
+                                      *random_cotangents(culled))
+        if bwd_culled["grads"].numel() != 0:
+            raise AssertionError("culled scene: expected no entries")
+        culled_dfields = torch.zeros((10, culled["n"]), device=dev).index_add_(
+            1, culled["s_gidx"], bwd_culled["grads"])
+        if culled_dfields.abs().max() != 0:
+            raise AssertionError("culled scene: expected all-zero gradients")
+        log(f"phase 3 [culled]: per-Gaussian gradients all zero over {culled['n']} Gaussians")
+        bwd_max_abs_err = max(b["max_abs_err"] for b in (bwd_real, bwd_rand, bwd_opaque,
+                                                          bwd_culled))
+        del bwd_rand, bwd_opaque, bwd_culled, opaque_model
+    check_ssim_gradient(torch.clamp(model_p(loss_cam)["render"].detach(), 0, 1), gt_loss)
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- phase 4
-    with tempfile.TemporaryDirectory() as tmp:
-        src, dst = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
-        write_dataset(model, src, dst, cameras, poses, fx, fy)
-        wrappers = {"composite_fwd": composite_fwd}
-        for fn in wrappers.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        render.main(["-s", src, "-d", dst, "-i", "1"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        with open(os.path.join(dst, "metrics.json")) as f:
-            metrics = json.load(f)
+    src, dst = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
+    write_dataset(model, src, dst, cameras, poses)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    render.main(["-s", src, "-d", dst, "-i", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    render_launches = {name: fn.launches for name, fn in wrappers.items()}
+    with open(os.path.join(dst, "metrics.json")) as f:
+        metrics = json.load(f)
     psnrs = [m["psnr"] for m in metrics["per_image"]]
     log(f"phase 4: render.main on {len(psnrs)} views in {wall:.2f} s; psnr {psnrs} "
         f"ssim {[m['ssim'] for m in metrics['per_image']]} "
-        f"n_points {metrics['summary']['n_points']} launches {launches}")
+        f"n_points {metrics['summary']['n_points']} launches {render_launches}")
     if len(psnrs) != N_VIEWS or min(psnrs) < MIN_PSNR_DB or not all(map(math.isfinite, psnrs)):
         raise AssertionError(f"render CLI PSNR below {MIN_PSNR_DB} dB: {psnrs}")
     if metrics["summary"]["n_points"] != N_GAUSSIANS:
         raise AssertionError(f"n_points {metrics['summary']['n_points']}")
-    if launches["composite_fwd"] != N_VIEWS:
-        raise AssertionError(f"composite_fwd launched {launches['composite_fwd']} times "
-                             f"on the main path, expected {N_VIEWS}")
+    if render_launches != {"composite_fwd": N_VIEWS, "composite_bwd": 0}:
+        raise AssertionError(f"render path launched {render_launches}, expected "
+                             f"{N_VIEWS} forward and no backward compositor")
 
     # ---------------------------------------------------------------- phase 5
     e, rs, re, tiles_x = bench["inputs"]
@@ -277,10 +503,34 @@ def main():
     n_bytes = e.numel() * 4 + 2 * rs.numel() * 4 + rs.numel() * 256 * (16 + 4 + 4)
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = scanned * OPS_PER_SCANNED_PAIR / PEAK_F32_OPS_PER_S * 1e3
+    fwd_bound = max(bytes_ms, ops_ms)
+    fwd_bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     log(f"phase 5 [{card}]: composite_fwd kernel {kernel_ms:.4f} ms (again {kernel_ms_2:.4f}), "
         f"plain {plain_ms:.4f} ms, K={bench['k']}, scanned pairs {scanned}, "
-        f"bytes {n_bytes}, bound {max(bytes_ms, ops_ms):.4f} ms "
+        f"bytes {n_bytes}, bound {fwd_bound:.4f} ms "
         f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})")
+
+    r_e, r_rs, r_re, r_tx = real["inputs"]
+    bwd_args = (r_e, r_rs, r_re, r_tx, real["final_t"], real["latch"], real["g_color4"],
+                real["g_t"])
+    bwd_ms = cuda_ms(lambda: composite_bwd(*bwd_args))
+    bwd_plain_ms = cuda_ms(lambda: composite_bwd_plain(*bwd_args))
+    bwd_ms_2 = cuda_ms(lambda: composite_bwd(*bwd_args))
+    bwd_pairs, bwd_contrib = backward_pairs(r_e, r_rs, r_re, r_tx, real["latch"])
+    t_tiles = r_rs.numel()
+    # e read and the gradients written (40 B per entry each), the ranges, and
+    # per pixel final_T, latch, g_color4 and g_T (28 B).
+    bwd_bytes = 2 * r_e.numel() * 4 + 2 * t_tiles * 4 + t_tiles * 256 * (4 + 4 + 16 + 4)
+    bwd_bytes_ms = bwd_bytes / PEAK_BYTES_PER_S * 1e3
+    bwd_ops = bwd_pairs * OPS_PER_SCANNED_PAIR + bwd_contrib * OPS_PER_CONTRIBUTING_PAIR
+    bwd_ops_ms = bwd_ops / PEAK_F32_OPS_PER_S * 1e3
+    bwd_bound = max(bwd_bytes_ms, bwd_ops_ms)
+    bwd_bound_by = "bytes" if bwd_bytes_ms >= bwd_ops_ms else "operations"
+    log(f"phase 5 [{card}]: composite_bwd kernel {bwd_ms:.4f} ms (again {bwd_ms_2:.4f}), "
+        f"plain {bwd_plain_ms:.4f} ms, K={real['k']}, pairs before the latch {bwd_pairs}, "
+        f"of them contributing {bwd_contrib}, operations {bwd_ops}, bytes {bwd_bytes}, bound {bwd_bound:.4f} ms "
+        f"(bytes {bwd_bytes_ms:.4f}, operations {bwd_ops_ms:.4f})")
+    del bwd_args
 
     stages = {"preprocess": [], "binning_sort": [], "gather_kernel": [], "assembly": []}
     camera = cameras[0]
@@ -310,16 +560,83 @@ def main():
         whole_ms = cuda_ms(lambda: model(camera))
     log(f"phase 5 [{card}]: render per image {whole_ms:.4f} ms; stage medians "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
-    n_launch, busy_ms, wall_ms, top = device_busy(model, camera)
-    if busy_ms > 0:
-        log(f"phase 5 [{card}]: under torch.profiler, per render: {n_launch:.0f} device "
-            f"kernels and copies, device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall "
-            f"(idle share {1 - busy_ms / wall_ms:.3f}); top: "
-            + "; ".join(f"{k} x{c} {ms:.4f} ms" for k, c, ms in top))
-    else:
-        log("phase 5: device busy share not measured (the profiler saw no device time)")
+    with torch.no_grad():
+        print_busy(card, "render", device_busy(lambda: model(camera)))
     if not torch.isfinite(out["render"]).all() or out["render"].shape != (3, HEIGHT, WIDTH):
         raise AssertionError("render output is not a finite [3, H, W] image")
+
+    # One training step at the bench scene: the perturbed model against the
+    # unperturbed scene's render at camera 0.
+    with torch.no_grad():
+        gt0 = torch.clamp(model(camera)["render"], 0, 1)
+    step_cam = build_camera(HEIGHT, WIDTH, camera.FoVx, camera.FoVy, R=camera.R, T=camera.T,
+                            ground_truth_image=gt0, device=dev)
+    step_model = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
+    step_trainer = Trainer(step_model, CameraDataset([step_cam]))
+    step_model.active_sh_degree = 3
+    step_ms = cuda_ms(lambda: step_trainer.step(step_cam))
+    step_stages = {"forward_loss": [], "backward": [], "adam_stats": []}
+    loss_fn = step_trainer.loss_pure()
+    for it in range(REPEATS + 3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        step_trainer.maybe_advance_schedules()
+        loss, out_s, offset = step_trainer.forward_loss(loss_fn, step_cam, {})
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        step_trainer.optimizer_step(out_s, offset)
+        step_trainer.curr_step += 1
+        ev[3].record()
+        ev[3].synchronize()
+        if it >= 3:
+            for i, key in enumerate(step_stages):
+                step_stages[key].append(ev[i].elapsed_time(ev[i + 1]))
+    step_split = {k: statistics.median(v) for k, v in step_stages.items()}
+    step_busy = device_busy(lambda: step_trainer.step(step_cam))
+    b3_share = sum(ms for key, ms in step_busy[4].items() if "composite_bwd" in key)
+    log(f"phase 5 [{card}]: training step {step_ms:.4f} ms (Trainer.step, N={N_GAUSSIANS}, "
+        f"{HEIGHT}x{WIDTH}, SH degree 3); stage medians "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in step_split.items())
+        + f"; composite_bwd device time per step under the profiler {b3_share:.4f} ms")
+    print_busy(card, "training step", step_busy)
+    if not math.isfinite(float(loss.detach())):
+        raise AssertionError("training step loss is not finite")
+    del step_trainer, step_model, out_s, offset, loss
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 6
+    dataset = prepare_dataset(src)
+    train_model = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
+    trainer = Trainer(train_model, dataset)
+    train_model.active_sh_degree = 3
+    out_dir = os.path.join(tmp, "train")
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = training(dataset, train_model, trainer, None, out_dir, iteration=TRAIN_STEPS,
+                      save_iterations=[TRAIN_STEPS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    values = torch.stack(losses).cpu().tolist()
+    first, last = statistics.mean(values[:4]), statistics.mean(values[-4:])
+    log(f"phase 6: training() {TRAIN_STEPS} steps on {len(dataset)} views in {wall:.2f} s; "
+        f"losses {values}; mean of the first 4 {first:.6f}, of the last 4 {last:.6f}; "
+        f"launches {launches}")
+    if len(values) != TRAIN_STEPS or not all(map(math.isfinite, values)):
+        raise AssertionError(f"training losses are not all finite: {values}")
+    if not last < first:
+        raise AssertionError("training did not reduce the loss")
+    if launches != {"composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS}:
+        raise AssertionError(f"training launched {launches}, expected {TRAIN_STEPS} of each")
+    saved = VariableSHGaussianModel(3, device=dev).load_ply(
+        os.path.join(out_dir, "point_cloud", f"iteration_{TRAIN_STEPS}", "point_cloud.ply"))
+    finite = all(bool(torch.isfinite(p).all()) for p in saved.param_dict().values())
+    log(f"phase 6: saved PLY holds {saved.num_points} points, finite {finite}; "
+        f"cameras.json {os.path.exists(os.path.join(out_dir, 'cameras.json'))}")
+    if saved.num_points != N_GAUSSIANS or not finite:
+        raise AssertionError("the trained PLY does not load back whole and finite")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
@@ -331,8 +648,20 @@ def main():
         "max_abs_err": bench["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": fwd_bound,
+        "bound_by": fwd_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "composite_bwd",
+        "route": "cuda",
+        "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_bwd.cu",
+        "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:502",
+        "launches": launches["composite_bwd"],
+        "max_abs_err": bwd_max_abs_err,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": bwd_bound,
+        "bound_by": bwd_bound_by,
         "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

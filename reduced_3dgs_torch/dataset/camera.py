@@ -1,5 +1,5 @@
 """Camera record and constructors (counterpart of
-reduced_3dgs_tpu/dataset/camera.py:20-88, 113-128).
+reduced_3dgs_tpu/dataset/camera.py:20-128).
 
 Matrices are stored in the row-vector convention of ops/projection.py.
 """
@@ -35,7 +35,8 @@ class Camera:
 def _as_tensor(x, device) -> Optional[torch.Tensor]:
     if x is None:
         return None
-    return torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
+    # np.array copies: a read-only source array cannot back a tensor.
+    return torch.as_tensor(np.array(x, np.float32) if not torch.is_tensor(x) else x,
                            dtype=torch.float32, device=device)
 
 
@@ -66,8 +67,32 @@ def build_camera(image_height: int, image_width: int, FoVx: float, FoVy: float,
     )
 
 
+def fov2focal(fov: float, pixels: int) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
 def focal2fov(focal: float, pixels: int) -> float:
     return 2 * math.atan(pixels / (2 * focal))
+
+
+def camera_to_json(idx: int, camera: Camera, img_name: str = "") -> dict:
+    """Vanilla-3DGS cameras.json entry: the camera-to-world position and
+    rotation, and the focal lengths."""
+    W2C = np.eye(4, dtype=np.float64)
+    # Row-vector storage: the column-vector rotation is the transpose.
+    W2C[:3, :3] = camera.R.detach().cpu().numpy().T
+    W2C[:3, 3] = camera.T.detach().cpu().numpy()
+    C2W = np.linalg.inv(W2C)
+    return {
+        "id": idx,
+        "img_name": img_name or f"{idx:05d}",
+        "width": camera.image_width,
+        "height": camera.image_height,
+        "position": C2W[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in C2W[:3, :3]],
+        "fy": fov2focal(camera.FoVy, camera.image_height),
+        "fx": fov2focal(camera.FoVx, camera.image_width),
+    }
 
 
 def camera_from_json(entry: dict, device="cuda", **overrides) -> Camera:

@@ -7,7 +7,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .camera import Camera, build_camera, camera_from_json, focal2fov
+from .camera import Camera, build_camera, camera_from_json, camera_to_json, focal2fov
 from .colmap import load_sparse, qvec2rotmat
 
 
@@ -28,6 +28,22 @@ class CameraDataset:
 
     def __iter__(self):
         return iter(self.cameras)
+
+    def save_cameras(self, path: str):
+        """Write the cameras as a vanilla-3DGS cameras.json."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        entries = [camera_to_json(i, cam, self.image_names[i])
+                   for i, cam in enumerate(self.cameras)]
+        with open(path, "w") as f:
+            json.dump(entries, f)
+
+    def scene_extent(self) -> float:
+        """Radius of the camera centres' bounding sphere times 1.1 (vanilla
+        3DGS's getNerfppNorm, which sets ``spatial_lr_scale``); 1.0 when the
+        cameras coincide."""
+        centers = np.stack([c.camera_center.detach().cpu().numpy() for c in self.cameras])
+        avg = centers.mean(axis=0)
+        return float(np.linalg.norm(centers - avg, axis=1).max() * 1.1) or 1.0
 
     @classmethod
     def load_cameras(cls, path: str, device="cuda", **overrides):

@@ -4,7 +4,9 @@ reduced_3dgs_tpu/models/gaussian_model.py:58-410).
 Raw parameters are ``nn.Parameter``s: ``_xyz [N,3]``, ``_features_dc
 [N,1,3]``, ``_features_rest [N,M,3]``, ``_scaling [N,3]`` (log),
 ``_rotation [N,4]`` (unnormalised) and ``_opacity [N,1]`` (logit).
-``forward(camera)`` renders through the tiled pipeline. PLY files use the
+``forward(camera)`` renders through the tiled pipeline, and ``render(camera,
+mean2d_offset_ndc)`` is the same render with the trainer's screen-space
+offset; both are differentiable in the parameters. PLY files use the
 standard 3DGS layout, so the JAX package reads what this writes and the
 other way round.
 """
@@ -13,7 +15,7 @@ from __future__ import annotations
 import math
 import os
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -102,6 +104,16 @@ class GaussianModel(nn.Module):
         """Render the model from ``camera``; see ``render_tiled`` for the
         output dict."""
         return render_tiled(*self.render_array_args(), self.render_settings(camera))
+
+    def render(self, camera: Camera,
+               mean2d_offset_ndc: Optional[torch.Tensor] = None) -> dict:
+        """Render from the model's own parameters, differentiably (the
+        counterpart of the JAX model's functional ``render``; every row is
+        alive, as the port keeps no capacity padding). ``mean2d_offset_ndc``
+        [N,2] is the zero offset whose gradient is the screen-space gradient
+        the trainer accumulates."""
+        return render_tiled(*self.render_array_args(), self.render_settings(camera),
+                            mean2d_offset_ndc=mean2d_offset_ndc)
 
     # --- PLY I/O (standard 3DGS layout) -------------------------------------
     def ply_arrays(self):

@@ -28,6 +28,9 @@ ARGTYPES = {
     # composite_fwd(e, K, range_start, range_end, num_tiles, tiles_x,
     #               color4, final_t, latch, stream)
     "composite_fwd": (_p, _i, _p, _p, _i, _i, _p, _p, _p, _p),
+    # composite_bwd(e, K, range_start, range_end, num_tiles, tiles_x,
+    #               final_t, latch, g_color4, g_t, grads, stream)
+    "composite_bwd": (_p, _i, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p),
 }
 
 
@@ -39,25 +42,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
+def _library_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build_libraries(names) -> None:
+    """Compile every library of ``names`` that is not built yet, one nvcc
+    process per source, all started together. Raises RuntimeError with
+    nvcc's output for the first build that fails."""
+    jobs = []
+    for name in names:
+        out = _library_path(name)
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        src = os.path.join(CSRC_DIR, f"{name}.cu")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, out))
+    failed = []
+    for name, proc, tmp, out in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, compiled first if it is not built yet,
     with its launcher's argtypes set. Raises RuntimeError with nvcc's
     output if the build fails."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(out)
+    build_libraries([name])
+    lib = ctypes.CDLL(_library_path(name))
     fn = getattr(lib, name)
     fn.argtypes = ARGTYPES[name]
     fn.restype = ctypes.c_int

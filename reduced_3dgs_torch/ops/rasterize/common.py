@@ -10,7 +10,7 @@ are binned with the alpha-contour box, which is never wider than the
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -54,12 +54,17 @@ def tile_grid(settings: RenderSettings):
 
 def preprocess(means3d: torch.Tensor, opacities_raw: torch.Tensor,
                scales: torch.Tensor, rotations: torch.Tensor,
-               shs: torch.Tensor, settings: RenderSettings) -> PreprocessedGaussians:
+               shs: torch.Tensor, settings: RenderSettings,
+               mean2d_offset_ndc: Optional[torch.Tensor] = None) -> PreprocessedGaussians:
     """Screen-space quantities of N Gaussians.
 
     Args: means3d [N,3]; opacities_raw [N] or [N,1] opacity logits; scales
     [N,3] activated; rotations [N,4] normalised; shs [N,K,3] degree-masked
-    SH coefficients."""
+    SH coefficients; mean2d_offset_ndc [N,2] (zeros), added to the
+    projected NDC xy before ``ndc2pix``, so its gradient is the screen-space
+    gradient in the reference's (0.5 W, 0.5 H) scaling, which the densifier
+    accumulates. Every row is alive: the port keeps no capacity padding, so
+    the JAX function's ``alive`` mask is not ported."""
     H, W = settings.image_height, settings.image_width
     tiles_x, tiles_y = tile_grid(settings)
     focal_x, focal_y = proj.focals_from_fov(W, H, settings.tanfovx, settings.tanfovy)
@@ -69,6 +74,8 @@ def preprocess(means3d: torch.Tensor, opacities_raw: torch.Tensor,
     visible = depths > config.NEAR_CULL_Z
 
     p_proj_xy = proj.project_points(means3d, settings.projmatrix)[..., :2]
+    if mean2d_offset_ndc is not None:
+        p_proj_xy = p_proj_xy + mean2d_offset_ndc
     cov3d = proj.build_cov3d(scales, settings.scale_modifier, rotations)
     cov2d = proj.build_cov2d(means3d, cov3d, settings.viewmatrix,
                              focal_x, focal_y, settings.tanfovx, settings.tanfovy,

@@ -1,12 +1,15 @@
 """Per-tile alpha compositing of depth-sorted entries (counterpart of
-reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:426-495, 724-773, 812-817).
+reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:426-495, 655-817).
 
 ``composite_fwd`` is the forward compositor. On a CUDA tensor it launches
 the hand-written kernel ``csrc/composite_fwd.cu`` (which replaces the
 Pallas kernel ``_fwd_kernel``); on a CPU tensor it runs
 ``composite_fwd_plain``, the same function in plain PyTorch, written as the
-JAX package's XLA path (log-space segmented scan). There is no fallback
-from one to the other.
+JAX package's XLA path (log-space segmented scan). ``composite_bwd`` is the
+backward compositor, likewise: the kernel ``csrc/composite_bwd.cu`` (which
+replaces ``_bwd_kernel``) on CUDA, ``composite_bwd_plain`` (autograd
+through a recomputed forward) on the CPU. There is no fallback from one to
+the other.
 
 Entry fields are packed as rows of a [10, K] float32 matrix, in the JAX
 kernel's order: 0 x, 1 y, 2 conic A, 3 conic B, 4 conic C, 5 opacity,
@@ -68,7 +71,7 @@ def composite_fwd_plain(e: torch.Tensor, range_start: torch.Tensor,
     tile_y = ((seg // tiles_x) * config.BLOCK_Y).to(torch.float32)
 
     # Per (pixel, tile): sums of w r, w g, w b, w depth and log T.
-    sums = torch.zeros(P, T, 5, device=device)
+    sums = torch.zeros(P, T, 5, dtype=e.dtype, device=device)
     latch = re.expand(P, T).contiguous()
     for p0 in range(0, P, _PIXEL_CHUNK):
         p = torch.arange(p0, min(p0 + _PIXEL_CHUNK, P), device=device)[:, None]
@@ -84,7 +87,7 @@ def composite_fwd_plain(e: torch.Tensor, range_start: torch.Tensor,
         log1ma = torch.log1p(-abar)
 
         lex = torch.cumsum(log1ma.double(), dim=1) - log1ma.double()  # exclusive
-        T_in = torch.exp((lex - lex[:, seg_start]).float())          # segment-local
+        T_in = torch.exp((lex - lex[:, seg_start]).to(e.dtype))      # segment-local
         trigger = gate & (T_in * (1.0 - abar) < config.T_EPS)
         tcum_ex = torch.cumsum(trigger.to(torch.int32), dim=1) - trigger.to(torch.int32)
         dead = (tcum_ex - tcum_ex[:, seg_start]) > 0
@@ -152,6 +155,115 @@ def composite_fwd(e: torch.Tensor, range_start: torch.Tensor,
 composite_fwd.launches = 0
 
 
+def composite_bwd_plain(e: torch.Tensor, range_start: torch.Tensor,
+                        range_end: torch.Tensor, tiles_x: int, final_t: torch.Tensor,
+                        latch: torch.Tensor, g_color4: torch.Tensor,
+                        g_t: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the backward compositor: the per-entry
+    gradients [10, K] of <g_color4, color4> + <g_t, final_T>.
+
+    It shares no formula with the kernel: for each chunk of
+    ``_PIXEL_CHUNK`` pixels it recomputes the forward quantities as
+    ``composite_fwd_plain`` does, with the contributing set taken from the
+    given ``latch`` (gated and at a sorted position below the latch), and
+    lets autograd differentiate them. Pixels are independent, so the sum of
+    the chunks' gradients is the gradient. ``final_t`` is recomputed, not
+    read; it is in the signature so that both versions take the same
+    arguments. The alpha clamp is ``where(raw < 0.99, raw, 0.99)``, whose
+    subgradient is the JAX package's strict ``<``."""
+    del final_t
+    device = e.device
+    K = e.shape[1]
+    T = range_start.shape[0]
+    P = config.BLOCK_SIZE
+    grads = torch.zeros_like(e)
+    if K == 0:
+        return grads
+    rs = range_start.to(torch.int64)
+    re = range_end.to(torch.int64)
+    seg = torch.repeat_interleave(torch.arange(T, device=device), re - rs, output_size=K)
+    seg_start = rs[seg]
+    pos = torch.arange(K, device=device)
+    tile_x = ((seg % tiles_x) * config.BLOCK_X).to(torch.float32)
+    tile_y = ((seg // tiles_x) * config.BLOCK_Y).to(torch.float32)
+    lat = latch[..., 0].to(torch.int64)
+    with torch.enable_grad():
+        for p0 in range(0, P, _PIXEL_CHUNK):
+            p1 = min(p0 + _PIXEL_CHUNK, P)
+            p = torch.arange(p0, p1, device=device)[:, None]
+            ev = e.detach().requires_grad_(True)
+            x, y, A, B, C, op, r, g, b, depth = ev
+            dx = x - (tile_x + (p % config.BLOCK_X).to(torch.float32))     # [p,K]
+            dy = y - (tile_y + (p // config.BLOCK_X).to(torch.float32))
+            power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+            gate = power <= 0.0
+            raw = op * torch.exp(torch.where(gate, power, torch.zeros_like(power)))
+            alpha = torch.where(raw < config.ALPHA_MAX, raw, config.ALPHA_MAX)
+            contrib = gate & (alpha >= config.ALPHA_EPS) & (pos < lat[:, p0:p1].T[:, seg])
+            abar = torch.where(contrib, alpha, torch.zeros_like(alpha))
+            log1ma = torch.log1p(-abar)
+            lex = torch.cumsum(log1ma.double(), dim=1) - log1ma.double()  # exclusive
+            T_in = torch.exp((lex - lex[:, seg_start]).to(e.dtype))      # segment-local
+            gc = g_color4[:, p0:p1].transpose(0, 1)[:, seg]              # [p,K,4]
+            cdotg = r * gc[..., 0] + g * gc[..., 1] + b * gc[..., 2] + depth * gc[..., 3]
+            final = torch.exp(torch.zeros(p1 - p0, T, dtype=e.dtype, device=device)
+                              .index_add(1, seg, log1ma))
+            objective = (abar * T_in * cdotg).sum() + (g_t[:, p0:p1, 0].T * final).sum()
+            grads += torch.autograd.grad(objective, ev)[0]
+    return grads
+
+
+def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.Tensor,
+                  tiles_x: int, final_t: torch.Tensor, latch: torch.Tensor,
+                  g_color4: torch.Tensor, g_t: torch.Tensor) -> torch.Tensor:
+    """Backward compositor: per-entry gradients [10, K], in sorted order, of
+    d(x, y, A, B, C, op, r, g, b, depth) for the cotangents g_color4
+    [T,256,4] and g_t [T,256,1], given the forward's final_T and latch.
+
+    CPU tensors go to ``composite_bwd_plain``. CUDA tensors launch the CUDA
+    kernel and add one to ``composite_bwd.launches``; any other device
+    raises."""
+    _check_inputs(e, range_start, range_end)
+    T = range_start.shape[0]
+    for nm, t, width, dtype in (("final_t", final_t, 1, torch.float32),
+                                ("latch", latch, 1, torch.int32),
+                                ("g_color4", g_color4, 4, torch.float32),
+                                ("g_t", g_t, 1, torch.float32)):
+        if t.dtype != dtype or tuple(t.shape) != (T, config.BLOCK_SIZE, width):
+            raise ValueError(f"{nm} must be {dtype} [{T}, {config.BLOCK_SIZE}, {width}], "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != e.device:
+            raise ValueError(f"{nm} is on {t.device}, e on {e.device}")
+    if e.device.type == "cpu":
+        return composite_bwd_plain(e, range_start, range_end, tiles_x, final_t, latch,
+                                   g_color4, g_t)
+    if e.device.type != "cuda":
+        raise ValueError(f"composite_bwd runs on cpu or cuda tensors, not {e.device}")
+    args = (("e", e), ("range_start", range_start), ("range_end", range_end),
+            ("final_t", final_t), ("latch", latch), ("g_color4", g_color4), ("g_t", g_t))
+    for nm, t in args:
+        if not t.is_contiguous():
+            raise ValueError(f"{nm} must be contiguous")
+    from ._build import load_library
+    lib = load_library("composite_bwd")
+    K = e.shape[1]
+    grads = torch.empty((N_FIELDS, K), dtype=torch.float32, device=e.device)
+    if T > 0:
+        with torch.cuda.device(e.device):
+            stream = torch.cuda.current_stream(e.device).cuda_stream
+            err = lib.composite_bwd(
+                e.data_ptr(), K, range_start.data_ptr(), range_end.data_ptr(), T, tiles_x,
+                final_t.data_ptr(), latch.data_ptr(), g_color4.data_ptr(), g_t.data_ptr(),
+                grads.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
+        composite_bwd.launches += 1
+    return grads
+
+
+composite_bwd.launches = 0
+
+
 class CompositeSorted(torch.autograd.Function):
     """Differentiable compositing straight from per-Gaussian fields
     (counterpart of ``composite_sorted``): gathers the sorted entries
@@ -159,18 +271,27 @@ class CompositeSorted(torch.autograd.Function):
 
     apply(fields10 [10,N], s_gidx [K], range_start [T], range_end [T],
     tiles_x) -> (color4 [T,256,4], final_T [T,256,1]). It saves the entry
-    buffer, final_T and the latch, which the backward compositor reads."""
+    buffer, the entries' Gaussian ids, final_T and the latch. The backward
+    runs ``composite_bwd`` into per-entry gradients [10, K] and sums them
+    per Gaussian into [10, N] with one ``index_add_``. (The JAX package's
+    scatter-free prefix difference, ``segment_reduce_emission``, exists
+    because XLA's scatter-add is serial on a TPU; it is not ported.) On
+    CUDA the sum uses float atomics, so its last bits vary between runs."""
 
     @staticmethod
     def forward(ctx, fields10, s_gidx, range_start, range_end, tiles_x):
         e = fields10.index_select(1, s_gidx).contiguous()
         color4, final_t, latch = composite_fwd(e, range_start, range_end, tiles_x)
-        ctx.save_for_backward(e, range_start, range_end, final_t, latch)
+        ctx.save_for_backward(e, s_gidx, range_start, range_end, final_t, latch)
         ctx.tiles_x = tiles_x
+        ctx.num_gaussians = fields10.shape[1]
         return color4, final_t
 
     @staticmethod
     def backward(ctx, g_color4, g_t):
-        raise NotImplementedError(
-            "the backward compositor (kernel B3, tile_composite_bwd) is ported "
-            "in slice 2 of the PyTorch port; render under torch.no_grad()")
+        e, s_gidx, range_start, range_end, final_t, latch = ctx.saved_tensors
+        g_entries = composite_bwd(e, range_start, range_end, ctx.tiles_x, final_t, latch,
+                                  g_color4.contiguous(), g_t.contiguous())
+        dfields = torch.zeros((N_FIELDS, ctx.num_gaussians), dtype=e.dtype, device=e.device)
+        dfields.index_add_(1, s_gidx, g_entries)
+        return dfields, None, None, None, None

@@ -9,7 +9,8 @@ The pipeline is the CUDA rasterizer's:
      one entry per (Gaussian, tile) pair in Gaussian order, and sorts them
      once by the int64 key (tile << 32 | depth bits), stably;
   3. ``CompositeSorted`` gathers the entries' fields and composites each
-     tile front to back (the CUDA kernel ``composite_fwd`` on the card);
+     tile front to back (the CUDA kernel ``composite_fwd`` on the card); its
+     backward replays each tile back to front (``composite_bwd``);
   4. ``_assemble_outputs`` stitches the tiles into the image.
 
 The JAX package instead sizes a static key buffer and regrows it on
@@ -53,7 +54,7 @@ def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
     tx = rect_min[gidx, 0].to(torch.int64) + ordinal % w_e
     ty = rect_min[gidx, 1].to(torch.int64) + ordinal // w_e
     tile = ty * tiles_x + tx
-    depth_bits = depths.contiguous().view(torch.int32)[gidx].to(torch.int64)
+    depth_bits = depths.detach().contiguous().view(torch.int32)[gidx].to(torch.int64)
     s_key, perm = torch.sort((tile << 32) | depth_bits, stable=True)
     s_tile = s_key >> 32
     # Tile ranges by binary search in the sorted tile ids. (bincount would
@@ -69,14 +70,16 @@ def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
 
 
 def render_tiled(means3d, opacities_raw, scales, rotations, shs,
-                 settings: RenderSettings) -> dict:
-    """Render an image through the tiled pipeline.
+                 settings: RenderSettings, mean2d_offset_ndc=None) -> dict:
+    """Render an image through the tiled pipeline; differentiable in every
+    float input. ``mean2d_offset_ndc`` goes to ``preprocess``.
 
     Returns {"render" [3,H,W], "radii" [N] int32, "final_T" [H,W],
     "depth" [H,W], "num_rendered" int}."""
     H, W = settings.image_height, settings.image_width
     tiles_x, tiles_y = common.tile_grid(settings)
-    pre = common.preprocess(means3d, opacities_raw, scales, rotations, shs, settings)
+    pre = common.preprocess(means3d, opacities_raw, scales, rotations, shs, settings,
+                            mean2d_offset_ndc=mean2d_offset_ndc)
     ent = bin_and_sort(pre.rect_min, pre.rect_max, pre.tiles_touched, pre.depths,
                        tiles_x, tiles_y)
     color4, final_t = CompositeSorted.apply(

@@ -1,6 +1,7 @@
 """SSIM with an 11-tap, sigma 1.5 Gaussian window (counterpart of
 reduced_3dgs_tpu/ops/ssim.py:13-18, 92-105): C1 = 0.01^2, C2 = 0.03^2,
-zero 'same' padding, mean over all pixels and channels."""
+zero 'same' padding, mean over all pixels and channels. Differentiable;
+value and gradient are computed in the inputs' dtype (no TF32)."""
 from __future__ import annotations
 
 import functools
@@ -17,17 +18,15 @@ def _gaussian_window_np(window_size: int, sigma: float) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
-def _blur(x: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
-    """Separable Gaussian blur of [M, H, W] maps as two depthwise conv2d.
-
-    cuDNN runs float32 convolutions in TF32 by default, which keeps about
-    three decimal digits and would move SSIM in the fourth; the blur turns
-    TF32 off for its two convolutions."""
-    taps = torch.from_numpy(_gaussian_window_np(window_size, sigma)).to(x.device)
+def _conv_blur(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Separable 'same' blur of [M, H, W] maps as two depthwise conv2d, with
+    cuDNN's TF32 off: it keeps about three decimal digits and would move
+    SSIM and its gradient in the fourth."""
     m = x.shape[0]
-    pad = window_size // 2
-    wy = taps.view(1, 1, window_size, 1).expand(m, 1, window_size, 1).contiguous()
-    wx = taps.view(1, 1, 1, window_size).expand(m, 1, 1, window_size).contiguous()
+    n = taps.numel()
+    pad = n // 2
+    wy = taps.view(1, 1, n, 1).expand(m, 1, n, 1).contiguous()
+    wx = taps.view(1, 1, 1, n).expand(m, 1, 1, n).contiguous()
     allow_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -36,6 +35,30 @@ def _blur(x: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
     finally:
         torch.backends.cudnn.allow_tf32 = allow_tf32
     return y[0]
+
+
+class _Blur(torch.autograd.Function):
+    """The blur with a backward of its own, so that the backward
+    convolutions, which autograd would run after the forward's TF32 switch
+    is restored, run in full float32 too. The window is symmetric and the
+    padding zero, so the blur is self-adjoint: its backward is the same
+    blur of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, taps):
+        ctx.save_for_backward(taps)
+        return _conv_blur(x, taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        taps, = ctx.saved_tensors
+        return _conv_blur(g.contiguous(), taps), None
+
+
+def _blur(x: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
+    """Separable Gaussian blur of [M, H, W] maps, 'same' zero padding."""
+    taps = torch.from_numpy(_gaussian_window_np(window_size, sigma)).to(x.device, x.dtype)
+    return _Blur.apply(x, taps)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,

@@ -2,8 +2,9 @@
 reduced_3dgs_tpu/shculling/gaussian_model.py:21-64).
 
 The int buffer ``_degrees`` [N] selects how many SH bands each Gaussian
-uses; ``masked_features`` zeroes the rest coefficients beyond it, so they
-neither colour the render nor receive gradient.
+uses; ``masked_features`` multiplies the rest coefficients beyond it by
+zero, so they neither colour the render nor receive gradient (exactly zero:
+the product's gradient is the mask times the cotangent).
 """
 from __future__ import annotations
 

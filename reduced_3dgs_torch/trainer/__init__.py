@@ -1,0 +1,2 @@
+from .abc import AbstractTrainer, TrainerWrapper  # noqa: F401
+from .base import BaseTrainer, Trainer  # noqa: F401

@@ -5,7 +5,10 @@ import torch
 
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(a - b))
+    """Mean |a - b|. Written as a select so that the subgradient at a == b is
+    +1 for ``a``, as JAX's ``abs`` gives it (``torch.abs`` gives 0)."""
+    d = a - b
+    return torch.mean(torch.where(d >= 0, d, -d))
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -89,8 +89,10 @@ def test_plain_compositor_matches_pallas_kernel(case):
 
 
 def test_composite_sorted_gathers_and_refuses_backward():
-    """CompositeSorted gathers fields10[:, s_gidx] and composites them; its
-    backward is not ported yet and says so instead of returning zeros."""
+    """CompositeSorted gathers fields10[:, s_gidx] and composites them. Its
+    backward no longer refuses: on CPU tensors it runs the plain backward
+    compositor, launches no kernel and reaches the preprocess inputs
+    (test_torch_composite_bwd.py holds its values against JAX)."""
     params, cam = _scene("normal")
     settings = torch_settings(cam)
     tiles_x, tiles_y = tcommon.tile_grid(settings)
@@ -106,5 +108,10 @@ def test_composite_sorted_gathers_and_refuses_backward():
                               ent["range_start"], ent["range_end"], tiles_x)
     np.testing.assert_array_equal(color4.detach().numpy(), ref[0].numpy())
     np.testing.assert_array_equal(final_t.detach().numpy(), ref[1].numpy())
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        color4.sum().backward()
+    launches = tcomp.composite_bwd.launches
+    color4.sum().backward()
+    assert tcomp.composite_bwd.launches == launches
+    for a in arrs:
+        if a.requires_grad:
+            assert a.grad is not None and torch.isfinite(a.grad).all()
+    assert arrs[0].grad.abs().sum() > 0

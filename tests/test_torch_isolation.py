@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX at import time, no quiet CPU
-fallback, no kernel launch for CPU tensors."""
+"""The PyTorch port stands alone: no JAX (and no tqdm, which the GPU
+machine lacks) at import time, no quiet CPU fallback, no kernel launch for
+CPU tensors."""
 import os
 import subprocess
 import sys
@@ -13,11 +14,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
-    """Import every module of the port with jax, flax and the JAX package
-    blocked; none of them may be needed or end up loaded."""
+    """Import every module of the port with jax, flax, tqdm and the JAX
+    package blocked; none of them may be needed or end up loaded."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
-        BLOCKED = ("jax", "jaxlib", "flax", "reduced_3dgs_tpu")
+        BLOCKED = ("jax", "jaxlib", "flax", "tqdm", "reduced_3dgs_tpu")
         for name in list(sys.modules):
             if name.split(".")[0] in BLOCKED:
                 del sys.modules[name]
@@ -36,12 +37,16 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not loaded, loaded
+        for name in ("reduced_3dgs_torch.train", "reduced_3dgs_torch.trainer.base",
+                     "reduced_3dgs_torch.trainer.optimizer",
+                     "reduced_3dgs_torch.utils.schedule"):
+            assert name in names, name
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module was imported
+    assert int(out.stdout.strip()) >= 21  # every module was imported
 
 
 def test_render_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
@@ -79,3 +84,52 @@ def test_composite_fwd_rejects_other_devices_and_bad_inputs():
         composite.composite_fwd(torch.zeros((9, 4)), rs, rs, 1)
     with pytest.raises(ValueError, match="int32"):
         composite.composite_fwd(torch.zeros((10, 4)), rs.long(), rs, 1)
+
+
+def test_composite_bwd_cpu_uses_plain_version():
+    from reduced_3dgs_torch.ops.rasterize import composite
+    e = torch.zeros((10, 3))
+    e[2] = e[4] = 1.0
+    e[5] = 0.5
+    e[0] = e[1] = 3.0
+    e[6] = 1.0
+    rs = torch.tensor([0, 3], dtype=torch.int32)
+    re = torch.tensor([3, 3], dtype=torch.int32)
+    _, final_t, latch = composite.composite_fwd(e, rs, re, tiles_x=2)
+    g_c = torch.ones((2, 256, 4))
+    g_t = torch.ones((2, 256, 1))
+    before = composite.composite_bwd.launches
+    out = composite.composite_bwd(e, rs, re, 2, final_t, latch, g_c, g_t)
+    plain = composite.composite_bwd_plain(e, rs, re, 2, final_t, latch, g_c, g_t)
+    assert composite.composite_bwd.launches == before
+    assert torch.equal(out, plain) and out.shape == (10, 3)
+    assert out[6].gt(0).all()  # red gradient: the blend weights
+
+
+def test_composite_bwd_rejects_other_devices_and_bad_inputs():
+    from reduced_3dgs_torch.ops.rasterize import composite
+    rs = torch.zeros(1, dtype=torch.int32)
+    ft, g4 = torch.ones((1, 256, 1)), torch.ones((1, 256, 4))
+    lat = torch.zeros((1, 256, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        composite.composite_bwd(torch.zeros((10, 4), device="meta"), rs.to("meta"),
+                                rs.to("meta"), 1, ft.to("meta"), lat.to("meta"),
+                                g4.to("meta"), ft.to("meta"))
+    with pytest.raises(ValueError, match="g_color4"):
+        composite.composite_bwd(torch.zeros((10, 4)), rs, rs, 1, ft, lat, ft, ft)
+    with pytest.raises(ValueError, match="latch"):
+        composite.composite_bwd(torch.zeros((10, 4)), rs, rs, 1, ft, lat.float(), g4, ft)
+
+
+def test_training_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
+    """training() without a device asks for CUDA and raises when it is
+    absent; asked for the CPU, it refuses a model that lies elsewhere."""
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    from reduced_3dgs_torch.train import training
+    model = VariableSHGaussianModel(3, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        training([], model, None, None, str(tmp_path), iteration=1, save_iterations=[])
+    with pytest.raises(ValueError, match="model lies on"):
+        training([], VariableSHGaussianModel(3, device="meta"), None, None, str(tmp_path),
+                 iteration=1, save_iterations=[], device="cpu")
