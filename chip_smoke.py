@@ -10,18 +10,25 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            its perturbed copy (bench.py's perturbation)
   phase 3  each kernel against its plain PyTorch version on the card, on
            the bench scene, an opaque scene and a fully culled scene: the
-           forward compositor, the backward compositor (cotangents from a
-           real loss and random ones), and the SSIM gradient against float64
-           and against float32 on the CPU
+           forward compositor, the statistics compositor (also against the
+           forward compositor, bit for bit), the backward compositor
+           (cotangents from a real loss and random ones), and the SSIM
+           gradient against float64 and against float32 on the CPU
   phase 4  the render entry point (reduced_3dgs_torch.render.main) on a
            4-view COLMAP dataset of the bench scene, with the kernels'
            launch counts read around it
   phase 5  timing with CUDA events (median of 20 after warm-up): each
            kernel and its plain version, a render and a training step with
-           their stage splits, and the device idle share under torch.profiler
+           their stage splits, an importance-pruning sweep and an SH cull
+           over the 4 views, and the device idle share under torch.profiler
   phase 6  the training path: train.training() with a Trainer for 20 steps
            on the 4-view dataset from the perturbed bench scene, with the
            kernels' launch counts read around it
+  phase 7  the reduction path: train.training() for 30 steps with
+           SHCullingTrainerWrapper(BaseImportancePruningTrainer, ...), which
+           prunes by importance after steps 10 and 20 and culls SH bands
+           after step 15, with the launch counts, N and the degrees read
+           around each event
 
 Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
@@ -46,6 +53,13 @@ FOCAL_X, FOCAL_Y = WIDTH / (2 * math.tan(FOVX / 2)), HEIGHT / (2 * math.tan(FOVY
 N_VIEWS = 4
 REPEATS = 20
 TRAIN_STEPS = 20
+# The reduction path of phase 7: importance pruning after steps 10 and 20,
+# the SH cull after step 15, one SH band more every 4 steps.
+REDUCTION_STEPS = 30
+REDUCTION_CONFIG = dict(importance_prune_from_iter=10, importance_prune_until_iter=20,
+                        importance_prune_interval=10, cull_at_steps=[15],
+                        sh_degree_up_interval=4)
+PRUNE_STEPS, CULL_STEPS = (10, 20), (15,)
 # Background of the camera whose loss gives the backward compositor's
 # cotangents: non-zero, so that the final_T cotangent is too.
 LOSS_BG = (0.2, 0.4, 0.6)
@@ -61,6 +75,9 @@ OPS_PER_SCANNED_PAIR = 13
 # passes it (T_in and w 3, c.g 7, d alpha-bar 4, dpower 2, the conic and
 # position partials 11).
 OPS_PER_CONTRIBUTING_PAIR = 27
+# The statistics compositor spends about 14 more on each pair that
+# contributes: the blend (w, four colour sums, T: 10) and the four sums.
+OPS_PER_STATS_CONTRIBUTING_PAIR = 14
 # Colour and final_T agree to 1e-4 and depth to 5e-4: the bars the JAX
 # package holds its own Pallas kernel to against its XLA path. The latch may
 # flip where T (1 - alpha) sits on 1e-4, between sequential and log-space
@@ -71,6 +88,11 @@ TOL_COLOR, TOL_DEPTH, MAX_LATCH_MISMATCH_SHARE = 1e-4, 5e-4, 1e-4
 # T by division, the plain version in log space, and sums in another order;
 # the worst field on the bench and opaque scenes sits near 9e-7).
 TOL_BWD_REL = 1e-5
+# Statistics compositor vs its plain version: counts exact (the kernel's
+# gate rounds as the plain version does) outside tiles whose latch differs;
+# each score field within this share of the plain version's max |value|.
+TOL_STATS_REL = 1e-5
+STAT_FIELDS = ("count", "count_op", "w", "T_in")
 # SSIM gradient in float32 on the card vs the same on the CPU, as a share
 # of the float64 gradient's max |value| (see check_ssim_gradient).
 TOL_SSIM_GRAD_REL = 1e-5
@@ -132,13 +154,18 @@ def view_camera(pose, dev, bg_color=(0.0, 0.0, 0.0)):
                         R=qvec2rotmat(q).T, T=t, bg_color=bg_color, device=dev)
 
 
-def cuda_ms(fn, warmup=3):
+def cuda_ms(fn, warmup=3, setup=None):
     """Median milliseconds of fn() over REPEATS runs, each between two CUDA
-    events, after `warmup` runs."""
+    events, after `warmup` runs; setup(), when given, runs before each run,
+    outside the events."""
     for _ in range(warmup):
+        if setup:
+            setup()
         fn()
     times = []
     for _ in range(REPEATS):
+        if setup:
+            setup()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -223,6 +250,58 @@ def compare_compositor(name, model, camera):
     return dict(k=k, max_abs_err=max(d_color, d_depth, d_t), latched=latched, empty=empty,
                 tiles=rs.numel(), inputs=(e, rs, re, tiles_x), latch=kl, final_t=kt,
                 color4=kc, s_gidx=s_gidx, n=model.num_points)
+
+
+def compare_stats(name, case):
+    """The statistics compositor on the forward compositor's case: its
+    colour, T and latch must equal the forward kernel's bit for bit, and its
+    statistics its plain version's, per entry and per Gaussian: counts
+    exactly outside the tiles whose latch differs between kernel and plain
+    version, each score within TOL_STATS_REL of its largest plain value.
+    Raises past the bars."""
+    from reduced_3dgs_torch.ops.rasterize.composite import (composite_fwd_stats,
+                                                            composite_fwd_stats_plain)
+    e, rs, re, tiles_x = case["inputs"]
+    kc, kt, kl, ks = composite_fwd_stats(e, rs, re, tiles_x)
+    torch.cuda.synchronize()
+    same = (torch.equal(kc, case["color4"]) and torch.equal(kt, case["final_t"])
+            and torch.equal(kl, case["latch"]))
+    pc, pt, pl, ps = composite_fwd_stats_plain(e, rs, re, tiles_x)
+    torch.cuda.synchronize()
+    K, n, s_gidx = e.shape[1], case["n"], case["s_gidx"]
+    seg = torch.repeat_interleave(torch.arange(rs.numel(), device=e.device), re - rs,
+                                  output_size=K)
+    bad_tiles = (kl != pl).flatten(1).any(dim=1)
+    ok = ~bad_tiles[seg]                                                  # [K]
+    kn = torch.zeros((4, n), device=e.device).index_add_(1, s_gidx, ks)
+    pn = torch.zeros((4, n), device=e.device).index_add_(1, s_gidx, ps)
+    ok_g = torch.ones(n, dtype=torch.bool, device=e.device)
+    ok_g[s_gidx[~ok]] = False
+    count_diff = (int((ks[0] != ps[0])[ok].sum()), int((kn[0] != pn[0])[ok_g].sum()))
+    worst, max_abs, parts = 0.0, 0.0, []
+    for level, kv, pv, sel in (("entry", ks, ps, ok), ("gaussian", kn, pn, ok_g)):
+        for f in range(1, 4):
+            d = float((kv[f] - pv[f])[sel].abs().max()) if bool(sel.any()) else 0.0
+            scale = float(pv[f].abs().max()) if pv.shape[1] else 0.0
+            if not math.isfinite(d):
+                raise AssertionError(f"{name}: non-finite statistic {STAT_FIELDS[f]}")
+            rel = d / scale if scale > 0 else (0.0 if d == 0 else math.inf)
+            worst = max(worst, rel)
+            if level == "entry":
+                max_abs = max(max_abs, d)
+            parts.append(f"{level}/{STAT_FIELDS[f]} {d:.2e}/{scale:.2e}")
+    log(f"phase 3 [{name}]: composite_fwd_stats colour, T and latch equal to composite_fwd "
+        f"bit for bit: {same}; tiles with a latch mismatch {int(bad_tiles.sum())}; count "
+        f"mismatches outside them: {count_diff[0]} entries, {count_diff[1]} Gaussians "
+        f"(of {K}, {n}); contributing pairs {int(ps[0].sum())}; max|d|/max|plain| per score: "
+        + ", ".join(parts) + f"; worst ratio {worst:.3e} (bar {TOL_STATS_REL})")
+    if not same:
+        raise AssertionError(f"{name}: composite_fwd_stats composites otherwise than "
+                             "composite_fwd")
+    if count_diff != (0, 0) or worst > TOL_STATS_REL:
+        raise AssertionError(f"{name}: composite_fwd_stats disagrees with its plain version")
+    return dict(max_abs_err=max_abs, stats=ks, per_gaussian=kn,
+                contributing=int(ps[0].sum()))
 
 
 def loss_cotangents(model, camera, gt):
@@ -386,15 +465,21 @@ def run(tmp):
     from reduced_3dgs_torch.dataset.camera import build_camera
     from reduced_3dgs_torch.dataset.dataset import CameraDataset, prepare_dataset
     from reduced_3dgs_torch.ops.rasterize import _build, common, tiled
+    from reduced_3dgs_torch.importance import BaseImportancePruningTrainer, prune_gaussians
     from reduced_3dgs_torch.ops.rasterize.composite import (CompositeSorted, composite_bwd,
                                                             composite_bwd_plain, composite_fwd,
-                                                            composite_fwd_plain, pack_fields)
-    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+                                                            composite_fwd_plain,
+                                                            composite_fwd_stats,
+                                                            composite_fwd_stats_plain,
+                                                            pack_fields)
+    from reduced_3dgs_torch.shculling import (SHCullingTrainerWrapper, VariableSHGaussianModel,
+                                              cull_sh_bands)
     from reduced_3dgs_torch.train import training
     from reduced_3dgs_torch.trainer import Trainer
 
     dev = torch.device("cuda")
-    wrappers = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd}
+    wrappers = {"composite_fwd": composite_fwd, "composite_fwd_stats": composite_fwd_stats,
+                "composite_bwd": composite_bwd}
     t_start = time.perf_counter()
     # ---------------------------------------------------------------- phase 0
     card = card_name()
@@ -405,11 +490,11 @@ def run(tmp):
 
     # ---------------------------------------------------------------- phase 1
     t0 = time.perf_counter()
-    _build.build_libraries(_build.ARGTYPES)
-    for name in _build.ARGTYPES:
+    _build.build_libraries(_build.SOURCES)
+    for name in _build.SOURCES:
         _build.load_library(name)
-    log(f"phase 1: built and loaded {sorted(_build.ARGTYPES)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 1: built and loaded {list(_build.SOURCES)} (launchers "
+        f"{sorted(_build.ARGTYPES)}) in {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- phase 2
     params = bench_scene(0)
@@ -436,6 +521,15 @@ def run(tmp):
             cameras[0])
         if culled["k"] != 0 or culled["empty"] != culled["tiles"]:
             raise AssertionError("culled scene: expected every tile empty")
+        stats_bench = compare_stats("bench", bench)
+        stats_opaque = compare_stats("opaque", opaque)
+        stats_culled = compare_stats("culled", culled)
+        if stats_culled["per_gaussian"].abs().max() != 0:
+            raise AssertionError("culled scene: expected all-zero statistics")
+        log(f"phase 3 [culled]: per-Gaussian statistics all zero over {culled['n']} Gaussians")
+        stats_max_abs_err = max(c["max_abs_err"] for c in (stats_bench, stats_opaque,
+                                                          stats_culled))
+        del stats_opaque, stats_culled
 
         gt_loss = torch.clamp(model(loss_cam)["render"], 0, 1)
         real = loss_cotangents(model_p, loss_cam, gt_loss)
@@ -489,7 +583,8 @@ def run(tmp):
         raise AssertionError(f"render CLI PSNR below {MIN_PSNR_DB} dB: {psnrs}")
     if metrics["summary"]["n_points"] != N_GAUSSIANS:
         raise AssertionError(f"n_points {metrics['summary']['n_points']}")
-    if render_launches != {"composite_fwd": N_VIEWS, "composite_bwd": 0}:
+    if render_launches != {"composite_fwd": N_VIEWS, "composite_fwd_stats": 0,
+                           "composite_bwd": 0}:
         raise AssertionError(f"render path launched {render_launches}, expected "
                              f"{N_VIEWS} forward and no backward compositor")
 
@@ -531,6 +626,61 @@ def run(tmp):
         f"of them contributing {bwd_contrib}, operations {bwd_ops}, bytes {bwd_bytes}, bound {bwd_bound:.4f} ms "
         f"(bytes {bwd_bytes_ms:.4f}, operations {bwd_ops_ms:.4f})")
     del bwd_args
+
+    # The statistics compositor at the bench scene, camera 0, beside B1 again.
+    stats_ms = cuda_ms(lambda: composite_fwd_stats(e, rs, re, tiles_x))
+    stats_plain_ms = cuda_ms(lambda: composite_fwd_stats_plain(e, rs, re, tiles_x))
+    stats_ms_2 = cuda_ms(lambda: composite_fwd_stats(e, rs, re, tiles_x))
+    kernel_ms_3 = cuda_ms(lambda: composite_fwd(e, rs, re, tiles_x))
+    stats_contrib = stats_bench["contributing"]
+    # B1's bytes and 16 B per entry of statistics written.
+    stats_bytes = n_bytes + 4 * e.shape[1] * 4
+    stats_bytes_ms = stats_bytes / PEAK_BYTES_PER_S * 1e3
+    stats_ops = scanned * OPS_PER_SCANNED_PAIR + stats_contrib * OPS_PER_STATS_CONTRIBUTING_PAIR
+    stats_ops_ms = stats_ops / PEAK_F32_OPS_PER_S * 1e3
+    stats_bound = max(stats_bytes_ms, stats_ops_ms)
+    stats_bound_by = "bytes" if stats_bytes_ms >= stats_ops_ms else "operations"
+    log(f"phase 5 [{card}]: composite_fwd_stats kernel {stats_ms:.4f} ms (again "
+        f"{stats_ms_2:.4f}), plain {stats_plain_ms:.4f} ms, composite_fwd again "
+        f"{kernel_ms_3:.4f} ms; K={bench['k']}, scanned pairs {scanned}, of them contributing "
+        f"{stats_contrib}, operations {stats_ops}, bytes {stats_bytes}, bound "
+        f"{stats_bound:.4f} ms (bytes {stats_bytes_ms:.4f}, operations {stats_ops_ms:.4f})")
+
+    # The two reduction events over the 4 views at the bench scene: an
+    # importance-pruning sweep (4 statistics renders and the scores) and an
+    # SH cull (8 statistics renders), each cull from the same starting state.
+    views = CameraDataset(cameras)
+
+    def prune():  # ImportancePruner's default type and thresholds
+        return prune_gaussians(model, views, prune_type="comprehensive", prune_percent=0.1,
+                               prune_thr_v_important_score=3.0, prune_thr_count=1,
+                               prune_thr_T_alpha=1, prune_thr_T_alpha_avg=0.001)
+
+    with torch.no_grad():
+        prune_ms = cuda_ms(prune)
+        n_pruned = int(prune().sum())
+    cull_model = VariableSHGaussianModel(3, device=dev).load_numpy(params)
+    start_dc = cull_model._features_dc.detach().clone()
+    start_rest = cull_model._features_rest.detach().clone()
+
+    def reset_cull_model():
+        with torch.no_grad():
+            cull_model._features_dc.copy_(start_dc)
+            cull_model._features_rest.copy_(start_rest)
+        cull_model.init_degrees()
+
+    def cull():  # SHCuller's default thresholds
+        cull_sh_bands(cull_model, views, threshold=6, std_threshold=0.04)
+
+    cull_ms = cuda_ms(cull, setup=reset_cull_model)
+    cull_busy = device_busy(lambda: (reset_cull_model(), cull()))
+    degree_hist = torch.bincount(cull_model._degrees.long(), minlength=4).tolist()
+    log(f"phase 5 [{card}]: prune_gaussians over {len(views)} views {prune_ms:.4f} ms "
+        f"(ImportancePruner's defaults: {n_pruned} of {model.num_points} to prune); "
+        f"cull_sh_bands over {len(views)} views {cull_ms:.4f} ms (SHCuller's defaults; "
+        f"degrees 0-3 after: {degree_hist})")
+    print_busy(card, "SH cull", cull_busy)
+    del cull_model, start_dc, start_rest
 
     stages = {"preprocess": [], "binning_sort": [], "gather_kernel": [], "assembly": []}
     camera = cameras[0]
@@ -628,8 +778,10 @@ def run(tmp):
         raise AssertionError(f"training losses are not all finite: {values}")
     if not last < first:
         raise AssertionError("training did not reduce the loss")
-    if launches != {"composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS}:
-        raise AssertionError(f"training launched {launches}, expected {TRAIN_STEPS} of each")
+    if launches != {"composite_fwd": TRAIN_STEPS, "composite_fwd_stats": 0,
+                    "composite_bwd": TRAIN_STEPS}:
+        raise AssertionError(f"training launched {launches}, expected {TRAIN_STEPS} of the "
+                             "forward and backward compositors and no statistics compositor")
     saved = VariableSHGaussianModel(3, device=dev).load_ply(
         os.path.join(out_dir, "point_cloud", f"iteration_{TRAIN_STEPS}", "point_cloud.ply"))
     finite = all(bool(torch.isfinite(p).all()) for p in saved.param_dict().values())
@@ -638,13 +790,82 @@ def run(tmp):
     if saved.num_points != N_GAUSSIANS or not finite:
         raise AssertionError("the trained PLY does not load back whole and finite")
 
+    del trainer, train_model, saved
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 7
+    red_model = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
+    red_trainer = SHCullingTrainerWrapper(BaseImportancePruningTrainer, red_model, dataset,
+                                          **REDUCTION_CONFIG)
+    events = []
+    take_step = red_trainer.step
+
+    def step_and_watch(camera):
+        """A step; around the steps where an event fires, N, the degrees'
+        histogram and the row count of every per-Gaussian tensor."""
+        fires = red_trainer.curr_step + 1 in PRUNE_STEPS + CULL_STEPS
+        if fires:
+            n0 = red_model.num_points
+            hist0 = torch.bincount(red_model._degrees.long(), minlength=4).tolist()
+        out = take_step(camera)
+        if fires:
+            rows = {f"{g}/{k}": v.shape[0] for g, t in red_trainer.engine.state_trees().items()
+                    for k, v in t.items()}
+            events.append(dict(step=red_trainer.curr_step, n_before=n0,
+                               n_after=red_model.num_points, degrees_before=hist0,
+                               degrees_after=torch.bincount(red_model._degrees.long(),
+                                                            minlength=4).tolist(),
+                               rows=sorted(set(rows.values()))))
+        return out
+
+    red_trainer.step = step_and_watch
+    red_dir = os.path.join(tmp, "reduction")
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    red_losses = training(dataset, red_model, red_trainer, None, red_dir,
+                          iteration=REDUCTION_STEPS, save_iterations=[])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    red_launches = {name: fn.launches for name, fn in wrappers.items()}
+    red_values = torch.stack(red_losses).cpu().tolist()
+    for ev in events:
+        log(f"phase 7: after step {ev['step']}: N {ev['n_before']} -> {ev['n_after']}, "
+            f"degrees 0-3 {ev['degrees_before']} -> {ev['degrees_after']}, rows of every "
+            f"per-Gaussian tensor {ev['rows']}")
+    log(f"phase 7: training() {REDUCTION_STEPS} steps with importance pruning and SH culling "
+        f"on {len(dataset)} views in {wall:.2f} s; losses {red_values}; launches {red_launches}")
+    expected = {"composite_fwd": REDUCTION_STEPS, "composite_bwd": REDUCTION_STEPS,
+                "composite_fwd_stats": len(dataset) * (len(PRUNE_STEPS) + 2 * len(CULL_STEPS))}
+    if red_launches != expected:
+        raise AssertionError(f"reduction path launched {red_launches}, expected {expected}")
+    if [ev["step"] for ev in events] != sorted(PRUNE_STEPS + CULL_STEPS):
+        raise AssertionError(f"events fired after steps {[ev['step'] for ev in events]}")
+    for ev in events:
+        if ev["rows"] != [ev["n_after"]]:
+            raise AssertionError(f"step {ev['step']}: per-Gaussian tensors have rows "
+                                 f"{ev['rows']}, the model {ev['n_after']}")
+        if ev["step"] in PRUNE_STEPS and not ev["n_after"] < ev["n_before"]:
+            raise AssertionError(f"step {ev['step']}: the prune did not lower N")
+        if ev["step"] in CULL_STEPS and not (sum(ev["degrees_after"][:3])
+                                             > sum(ev["degrees_before"][:3])):
+            raise AssertionError(f"step {ev['step']}: the cull lowered no degree")
+    if len(red_values) != REDUCTION_STEPS or not all(map(math.isfinite, red_values)):
+        raise AssertionError(f"reduction losses are not all finite: {red_values}")
+    red_saved = VariableSHGaussianModel(3, device=dev).load_ply(
+        os.path.join(red_dir, "point_cloud", f"iteration_{REDUCTION_STEPS}", "point_cloud.ply"))
+    log(f"phase 7: saved PLY holds {red_saved.num_points} points (model "
+        f"{red_model.num_points}, from {N_GAUSSIANS})")
+    if red_saved.num_points != red_model.num_points or not red_model.num_points < N_GAUSSIANS:
+        raise AssertionError("the reduced PLY does not hold the pruned model")
+
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_fwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:300",
-        "launches": launches["composite_fwd"],
+        "launches": red_launches["composite_fwd"],
         "max_abs_err": bench["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -652,11 +873,23 @@ def run(tmp):
         "bound_by": fwd_bound_by,
         "library_ms": None,
     }, {
+        "name": "composite_fwd_stats",
+        "route": "cuda",
+        "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_fwd.cu",
+        "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:300",
+        "launches": red_launches["composite_fwd_stats"],
+        "max_abs_err": stats_max_abs_err,
+        "ms": stats_ms,
+        "plain_ms": stats_plain_ms,
+        "bound_ms": stats_bound,
+        "bound_by": stats_bound_by,
+        "library_ms": None,
+    }, {
         "name": "composite_bwd",
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_bwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:502",
-        "launches": launches["composite_bwd"],
+        "launches": red_launches["composite_bwd"],
         "max_abs_err": bwd_max_abs_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

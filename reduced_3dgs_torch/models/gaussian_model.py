@@ -6,7 +6,10 @@ Raw parameters are ``nn.Parameter``s: ``_xyz [N,3]``, ``_features_dc
 ``_rotation [N,4]`` (unnormalised) and ``_opacity [N,1]`` (logit).
 ``forward(camera)`` renders through the tiled pipeline, and ``render(camera,
 mean2d_offset_ndc)`` is the same render with the trainer's screen-space
-offset; both are differentiable in the parameters. PLY files use the
+offset; both are differentiable in the parameters unless ``with_stats``.
+``render`` also renders from explicit parameters and degrees that are not
+the model's own (the JAX model's functional ``render(params, camera,
+aux)``), which SH culling needs. PLY files use the
 standard 3DGS layout, so the JAX package reads what this writes and the
 other way round.
 """
@@ -28,6 +31,11 @@ from ..utils.device import resolve_device
 from . import ply as plyio
 
 PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
+
+
+def normalized_rotation(rot: torch.Tensor) -> torch.Tensor:
+    """q * rsqrt(|q|^2 + 1e-24): finite value and gradient at q = 0."""
+    return rot * torch.rsqrt(torch.sum(rot * rot, dim=-1, keepdim=True) + 1e-24)
 
 
 class GaussianModel(nn.Module):
@@ -53,9 +61,7 @@ class GaussianModel(nn.Module):
 
     @property
     def get_rotation(self):
-        """q * rsqrt(|q|^2 + 1e-24): finite value and gradient at q = 0."""
-        rot = self._rotation
-        return rot * torch.rsqrt(torch.sum(rot * rot, dim=-1, keepdim=True) + 1e-24)
+        return normalized_rotation(self._rotation)
 
     @property
     def num_points(self) -> int:
@@ -65,9 +71,31 @@ class GaussianModel(nn.Module):
         """The raw parameters by their JAX-package names."""
         return {name: getattr(self, f"_{name}") for name in PARAM_NAMES}
 
-    def masked_features(self) -> torch.Tensor:
-        """[N, 1+M, 3] SH features as the renderer reads them."""
-        return torch.cat([self._features_dc, self._features_rest], dim=1)
+    def masked_features(self, params: Optional[Dict[str, torch.Tensor]] = None,
+                        degrees: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[N, 1+M, 3] SH features of ``params`` (the model's own when None)
+        as the renderer reads them. ``degrees`` is used by models with
+        per-Gaussian SH degrees and ignored here."""
+        del degrees
+        params = self.param_dict() if params is None else params
+        return torch.cat([params["features_dc"], params["features_rest"]], dim=1)
+
+    # --- state that moves with the rows -------------------------------------
+    @torch.no_grad()
+    def set_parameters(self, params: Dict[str, torch.Tensor]):
+        """Replace the six parameters with new ``nn.Parameter``s holding
+        ``params`` (their row count may differ from the current one)."""
+        for name in PARAM_NAMES:
+            setattr(self, f"_{name}", nn.Parameter(params[name].detach().clone()))
+        return self
+
+    def aux_state(self) -> Dict[str, torch.Tensor]:
+        """Non-trainable per-Gaussian state; none here."""
+        return {}
+
+    def aux_set(self, aux: Dict[str, torch.Tensor]):
+        del aux
+        return self
 
     # --- parameters from outside --------------------------------------------
     def load_numpy(self, params: Dict[str, np.ndarray], degrees=None):
@@ -75,10 +103,9 @@ class GaussianModel(nn.Module):
         arrays of ``GaussianModel.parameters()``, as numpy). ``degrees`` is
         used by models with per-Gaussian SH degrees and ignored here."""
         del degrees
-        for name in PARAM_NAMES:
-            value = torch.tensor(np.asarray(params[name], np.float32), device=self.device)
-            setattr(self, f"_{name}", nn.Parameter(value))
-        return self
+        return self.set_parameters({
+            name: torch.tensor(np.asarray(params[name], np.float32), device=self.device)
+            for name in PARAM_NAMES})
 
     # --- rendering ----------------------------------------------------------
     def render_settings(self, camera: Camera) -> RenderSettings:
@@ -95,25 +122,33 @@ class GaussianModel(nn.Module):
             sh_degree=self.active_sh_degree,
         )
 
-    def render_array_args(self):
-        """Renderer inputs: means, opacity logits, scales, rotations, SH."""
-        return (self._xyz, self._opacity, self.get_scaling, self.get_rotation,
-                self.masked_features())
+    def render_array_args(self, params: Optional[Dict[str, torch.Tensor]] = None,
+                          degrees: Optional[torch.Tensor] = None):
+        """Renderer inputs from ``params`` (the model's own when None):
+        means, opacity logits, scales, rotations, SH."""
+        p = self.param_dict() if params is None else params
+        return (p["xyz"], p["opacity"], torch.exp(p["scaling"]),
+                normalized_rotation(p["rotation"]), self.masked_features(params, degrees))
 
-    def forward(self, camera: Camera) -> dict:
+    def forward(self, camera: Camera, with_stats: bool = False) -> dict:
         """Render the model from ``camera``; see ``render_tiled`` for the
-        output dict."""
-        return render_tiled(*self.render_array_args(), self.render_settings(camera))
+        output dict and the statistics."""
+        return self.render(camera, with_stats=with_stats)
 
     def render(self, camera: Camera,
-               mean2d_offset_ndc: Optional[torch.Tensor] = None) -> dict:
-        """Render from the model's own parameters, differentiably (the
-        counterpart of the JAX model's functional ``render``; every row is
-        alive, as the port keeps no capacity padding). ``mean2d_offset_ndc``
-        [N,2] is the zero offset whose gradient is the screen-space gradient
-        the trainer accumulates."""
-        return render_tiled(*self.render_array_args(), self.render_settings(camera),
-                            mean2d_offset_ndc=mean2d_offset_ndc)
+               mean2d_offset_ndc: Optional[torch.Tensor] = None, *,
+               params: Optional[Dict[str, torch.Tensor]] = None,
+               degrees: Optional[torch.Tensor] = None,
+               with_stats: bool = False) -> dict:
+        """Render from ``params`` and ``degrees`` (the model's own when
+        None), differentiably unless ``with_stats`` (the counterpart of the
+        JAX model's functional ``render``; every row is alive, as the port
+        keeps no capacity padding). ``mean2d_offset_ndc`` [N,2] is the zero
+        offset whose gradient is the screen-space gradient the trainer
+        accumulates."""
+        return render_tiled(*self.render_array_args(params, degrees),
+                            self.render_settings(camera),
+                            mean2d_offset_ndc=mean2d_offset_ndc, with_stats=with_stats)
 
     # --- PLY I/O (standard 3DGS layout) -------------------------------------
     def ply_arrays(self):

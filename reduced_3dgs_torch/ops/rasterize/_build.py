@@ -1,7 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Each kernel is one source ``csrc/<name>.cu`` with a plain C launcher. It is
-compiled by nvcc for sm_90a into a shared library under
+Each source ``csrc/<name>.cu`` holds one or more kernels, each with a plain
+C launcher. It is compiled by nvcc for sm_90a into a shared library under
 ``reduced_3dgs_torch/_build/`` (git-ignored) at first use, and loaded with
 ctypes. The library's file name carries a hash of its source and flags, so
 an edited source is rebuilt. Nothing here runs at import time.
@@ -23,15 +23,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
-# C signature of each kernel's launcher; every launcher returns a cudaError_t.
+# C signature of each kernel's launcher, by symbol; every launcher returns a
+# cudaError_t.
 ARGTYPES = {
     # composite_fwd(e, K, range_start, range_end, num_tiles, tiles_x,
     #               color4, final_t, latch, stream)
     "composite_fwd": (_p, _i, _p, _p, _i, _i, _p, _p, _p, _p),
+    # composite_fwd_stats(e, K, range_start, range_end, num_tiles, tiles_x,
+    #                     color4, final_t, latch, stats, stream)
+    "composite_fwd_stats": (_p, _i, _p, _p, _i, _i, _p, _p, _p, _p, _p),
     # composite_bwd(e, K, range_start, range_end, num_tiles, tiles_x,
     #               final_t, latch, g_color4, g_t, grads, stream)
     "composite_bwd": (_p, _i, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p),
 }
+# The source (csrc/<name>.cu, and the library built from it) of each symbol.
+SOURCE_OF = {"composite_fwd": "composite_fwd", "composite_fwd_stats": "composite_fwd",
+             "composite_bwd": "composite_bwd"}
+SOURCES = tuple(sorted(set(SOURCE_OF.values())))
 
 
 def _nvcc() -> str:
@@ -75,14 +83,20 @@ def build_libraries(names) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+def set_argtypes(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set the argtypes of every launcher that source ``name`` defines."""
+    for symbol, source in SOURCE_OF.items():
+        if source == name:
+            fn = getattr(lib, symbol)
+            fn.argtypes = ARGTYPES[symbol]
+            fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, compiled first if it is not built yet,
-    with its launcher's argtypes set. Raises RuntimeError with nvcc's
-    output if the build fails."""
+    """The kernel library built from ``csrc/<name>.cu``, compiled first if
+    it is not built yet, with its launchers' argtypes set. Raises
+    RuntimeError with nvcc's output if the build fails."""
     build_libraries([name])
-    lib = ctypes.CDLL(_library_path(name))
-    fn = getattr(lib, name)
-    fn.argtypes = ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return lib
+    return set_argtypes(ctypes.CDLL(_library_path(name)), name)

@@ -5,11 +5,14 @@ reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:426-495, 655-817).
 the hand-written kernel ``csrc/composite_fwd.cu`` (which replaces the
 Pallas kernel ``_fwd_kernel``); on a CPU tensor it runs
 ``composite_fwd_plain``, the same function in plain PyTorch, written as the
-JAX package's XLA path (log-space segmented scan). ``composite_bwd`` is the
-backward compositor, likewise: the kernel ``csrc/composite_bwd.cu`` (which
-replaces ``_bwd_kernel``) on CUDA, ``composite_bwd_plain`` (autograd
-through a recomputed forward) on the CPU. There is no fallback from one to
-the other.
+JAX package's XLA path (log-space segmented scan). ``composite_fwd_stats``
+is the same compositor with per-entry statistics (the Pallas kernel's
+``with_stats=True`` form), likewise: the statistics form of
+``csrc/composite_fwd.cu`` on CUDA, ``composite_fwd_stats_plain`` on the CPU.
+``composite_bwd`` is the backward compositor, likewise: the kernel
+``csrc/composite_bwd.cu`` (which replaces ``_bwd_kernel``) on CUDA,
+``composite_bwd_plain`` (autograd through a recomputed forward) on the CPU.
+There is no fallback from one to the other.
 
 Entry fields are packed as rows of a [10, K] float32 matrix, in the JAX
 kernel's order: 0 x, 1 y, 2 conic A, 3 conic B, 4 conic C, 5 opacity,
@@ -32,6 +35,8 @@ import torch
 from ... import config
 
 N_FIELDS = 10
+# Rows of the statistics compositor's per-entry output.
+N_STATS = 4
 # Pixels per step of the plain version: its [pixels, K] temporaries at the
 # bench scene (K ~ 0.6M entries) must fit on the card.
 _PIXEL_CHUNK = 32
@@ -57,6 +62,19 @@ def composite_fwd_plain(e: torch.Tensor, range_start: torch.Tensor,
     chunks of ``_PIXEL_CHUNK``, with entries on the last axis so that every
     scan runs along contiguous memory.
     """
+    return _composite_plain(e, range_start, range_end, tiles_x, with_stats=False)
+
+
+def composite_fwd_stats_plain(e: torch.Tensor, range_start: torch.Tensor,
+                              range_end: torch.Tensor, tiles_x: int):
+    """Plain PyTorch version of the statistics compositor: the outputs of
+    ``composite_fwd_plain`` and stats [4, K] float32, per sorted entry over
+    the pixels it contributes to (the XLA path's tiled.py:552-560): the
+    count, count x opacity, the sum of w and the sum of the incoming T."""
+    return _composite_plain(e, range_start, range_end, tiles_x, with_stats=True)
+
+
+def _composite_plain(e, range_start, range_end, tiles_x, with_stats):
     device = e.device
     K = e.shape[1]
     T = range_start.shape[0]
@@ -73,6 +91,10 @@ def composite_fwd_plain(e: torch.Tensor, range_start: torch.Tensor,
     # Per (pixel, tile): sums of w r, w g, w b, w depth and log T.
     sums = torch.zeros(P, T, 5, dtype=e.dtype, device=device)
     latch = re.expand(P, T).contiguous()
+    # Per entry: contributing pixels, sum of w, sum of T_in.
+    counts = torch.zeros(K, dtype=torch.int64, device=device)
+    w_sum = torch.zeros(K, dtype=e.dtype, device=device)
+    t_sum = torch.zeros(K, dtype=e.dtype, device=device)
     for p0 in range(0, P, _PIXEL_CHUNK):
         p = torch.arange(p0, min(p0 + _PIXEL_CHUNK, P), device=device)[:, None]
         dx = x - (tile_x + (p % config.BLOCK_X).to(torch.float32))     # [p,K]
@@ -99,9 +121,17 @@ def composite_fwd_plain(e: torch.Tensor, range_start: torch.Tensor,
         sums[p0:p0 + p.shape[0]].index_add_(1, seg, vals)
         cand = torch.where(trigger & ~dead, pos, torch.full_like(pos, K))
         latch[p0:p0 + p.shape[0]].scatter_reduce_(1, seg.expand_as(cand), cand, reduce="amin")
+        if with_stats:
+            counts += contrib.sum(dim=0)
+            w_sum += w.sum(dim=0)
+            t_sum += torch.where(contrib, T_in, torch.zeros_like(T_in)).sum(dim=0)
     color4 = sums[..., :4].transpose(0, 1).contiguous()
     final_t = torch.exp(sums[..., 4]).T.contiguous()[:, :, None]
-    return color4, final_t, latch.T.to(torch.int32).contiguous()[:, :, None]
+    latch = latch.T.to(torch.int32).contiguous()[:, :, None]
+    if not with_stats:
+        return color4, final_t, latch
+    cnt = counts.to(e.dtype)
+    return color4, final_t, latch, torch.stack([cnt, cnt * op, w_sum, t_sum])
 
 
 def _check_inputs(e, range_start, range_end):
@@ -127,8 +157,40 @@ def composite_fwd(e: torch.Tensor, range_start: torch.Tensor,
     _check_inputs(e, range_start, range_end)
     if e.device.type == "cpu":
         return composite_fwd_plain(e, range_start, range_end, tiles_x)
+    return _launch_fwd(composite_fwd, e, range_start, range_end, tiles_x)
+
+
+composite_fwd.launches = 0
+
+
+def composite_fwd_stats(e: torch.Tensor, range_start: torch.Tensor,
+                        range_end: torch.Tensor, tiles_x: int):
+    """Statistics compositor: the outputs of ``composite_fwd`` and stats
+    [4, K] float32, per sorted entry over the pixels it contributes to
+    (gated and before the pixel's latch; pixels outside the image count,
+    as in the JAX package): the count, count x opacity, the sum of the
+    blend weights w = alpha T_in and the sum of the incoming transmittance
+    T_in. Entries the walk never reaches get zeros. Not differentiable.
+
+    CPU tensors go to ``composite_fwd_stats_plain``. CUDA tensors launch the
+    CUDA kernel (``composite_fwd.cu``'s statistics form) and add one to
+    ``composite_fwd_stats.launches``; any other device raises."""
+    _check_inputs(e, range_start, range_end)
+    if e.device.type == "cpu":
+        return composite_fwd_stats_plain(e, range_start, range_end, tiles_x)
+    return _launch_fwd(composite_fwd_stats, e, range_start, range_end, tiles_x)
+
+
+composite_fwd_stats.launches = 0
+
+
+def _launch_fwd(wrapper, e, range_start, range_end, tiles_x):
+    """Launch the kernel of ``csrc/composite_fwd.cu`` that ``wrapper`` (one
+    of the two functions above) names, with its stats output for
+    ``composite_fwd_stats``, and count the launch on ``wrapper``."""
+    symbol = wrapper.__name__
     if e.device.type != "cuda":
-        raise ValueError(f"composite_fwd runs on cpu or cuda tensors, not {e.device}")
+        raise ValueError(f"{symbol} runs on cpu or cuda tensors, not {e.device}")
     for nm, t in (("e", e), ("range_start", range_start), ("range_end", range_end)):
         if not t.is_contiguous():
             raise ValueError(f"{nm} must be contiguous")
@@ -139,20 +201,19 @@ def composite_fwd(e: torch.Tensor, range_start: torch.Tensor,
     color4 = torch.empty((T, config.BLOCK_SIZE, 4), dtype=torch.float32, device=e.device)
     final_t = torch.empty((T, config.BLOCK_SIZE, 1), dtype=torch.float32, device=e.device)
     latch = torch.empty((T, config.BLOCK_SIZE, 1), dtype=torch.int32, device=e.device)
+    outs = [color4, final_t, latch]
+    if symbol == "composite_fwd_stats":
+        outs.append(torch.empty((N_STATS, K), dtype=torch.float32, device=e.device))
     if T > 0:
         with torch.cuda.device(e.device):
             stream = torch.cuda.current_stream(e.device).cuda_stream
-            err = lib.composite_fwd(
+            err = getattr(lib, symbol)(
                 e.data_ptr(), K, range_start.data_ptr(), range_end.data_ptr(),
-                T, tiles_x, color4.data_ptr(), final_t.data_ptr(), latch.data_ptr(),
-                stream)
+                T, tiles_x, *(t.data_ptr() for t in outs), stream)
         if err != 0:
-            raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error {err}")
-        composite_fwd.launches += 1
-    return color4, final_t, latch
-
-
-composite_fwd.launches = 0
+            raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
+        wrapper.launches += 1
+    return tuple(outs)
 
 
 def composite_bwd_plain(e: torch.Tensor, range_start: torch.Tensor,

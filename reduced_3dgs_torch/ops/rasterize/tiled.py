@@ -1,6 +1,6 @@
 """Tiled renderer: binning, one sort, per-tile compositing (counterpart of
 reduced_3dgs_tpu/ops/rasterize/tiled.py:138-159, 174-370, 441-495 and
-582-608).
+582-618).
 
 The pipeline is the CUDA rasterizer's:
 
@@ -10,7 +10,9 @@ The pipeline is the CUDA rasterizer's:
      once by the int64 key (tile << 32 | depth bits), stably;
   3. ``CompositeSorted`` gathers the entries' fields and composites each
      tile front to back (the CUDA kernel ``composite_fwd`` on the card); its
-     backward replays each tile back to front (``composite_bwd``);
+     backward replays each tile back to front (``composite_bwd``). A render
+     with statistics gathers the fields and runs ``composite_fwd_stats``
+     instead, without autograd;
   4. ``_assemble_outputs`` stitches the tiles into the image.
 
 The JAX package instead sizes a static key buffer and regrows it on
@@ -18,12 +20,14 @@ overflow; the port needs neither.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ... import config
 from . import common
 from .common import RenderSettings
-from .composite import CompositeSorted, pack_fields
+from .composite import CompositeSorted, composite_fwd_stats, pack_fields
 
 
 def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
@@ -70,22 +74,46 @@ def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
 
 
 def render_tiled(means3d, opacities_raw, scales, rotations, shs,
-                 settings: RenderSettings, mean2d_offset_ndc=None) -> dict:
+                 settings: RenderSettings, mean2d_offset_ndc=None,
+                 with_stats: bool = False) -> dict:
     """Render an image through the tiled pipeline; differentiable in every
-    float input. ``mean2d_offset_ndc`` goes to ``preprocess``.
+    float input unless ``with_stats``. ``mean2d_offset_ndc`` goes to
+    ``preprocess``.
 
     Returns {"render" [3,H,W], "radii" [N] int32, "final_T" [H,W],
-    "depth" [H,W], "num_rendered" int}."""
+    "depth" [H,W], "num_rendered" int}. With ``with_stats`` the render runs
+    without autograd (the JAX package's stop_gradient) through the
+    statistics compositor, whose per-entry sums are summed per Gaussian with
+    one ``index_add_``, and the dict also holds, per Gaussian [N]:
+    "gaussians_count" and "touched_pixels" (int32, the pixels it contributes
+    to), "opacity_important_score" (count x opacity),
+    "T_alpha_important_score" (sum of alpha T) and "transmittance_sum"
+    (sum of the incoming T)."""
     H, W = settings.image_height, settings.image_width
     tiles_x, tiles_y = common.tile_grid(settings)
-    pre = common.preprocess(means3d, opacities_raw, scales, rotations, shs, settings,
-                            mean2d_offset_ndc=mean2d_offset_ndc)
-    ent = bin_and_sort(pre.rect_min, pre.rect_max, pre.tiles_touched, pre.depths,
-                       tiles_x, tiles_y)
-    color4, final_t = CompositeSorted.apply(
-        pack_fields(pre), ent["s_gidx"], ent["range_start"], ent["range_end"], tiles_x)
-    return _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y,
-                             H, W, ent["num_rendered"])
+    with torch.no_grad() if with_stats else contextlib.nullcontext():
+        pre = common.preprocess(means3d, opacities_raw, scales, rotations, shs, settings,
+                                mean2d_offset_ndc=mean2d_offset_ndc)
+        ent = bin_and_sort(pre.rect_min, pre.rect_max, pre.tiles_touched, pre.depths,
+                           tiles_x, tiles_y)
+        if not with_stats:
+            color4, final_t = CompositeSorted.apply(
+                pack_fields(pre), ent["s_gidx"], ent["range_start"], ent["range_end"], tiles_x)
+            return _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y,
+                                     H, W, ent["num_rendered"])
+        e = pack_fields(pre).index_select(1, ent["s_gidx"]).contiguous()
+        color4, final_t, _, stats = composite_fwd_stats(e, ent["range_start"],
+                                                        ent["range_end"], tiles_x)
+        per_gaussian = torch.zeros((stats.shape[0], means3d.shape[0]), dtype=stats.dtype,
+                                   device=stats.device).index_add_(1, ent["s_gidx"], stats)
+        out = _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y, H, W,
+                                ent["num_rendered"])
+        count = per_gaussian[0].to(torch.int32)
+        out.update(gaussians_count=count, touched_pixels=count,
+                   opacity_important_score=per_gaussian[1],
+                   T_alpha_important_score=per_gaussian[2],
+                   transmittance_sum=per_gaussian[3])
+        return out
 
 
 def _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y, H, W,

@@ -1,10 +1,12 @@
 """Model with a per-Gaussian SH degree (counterpart of
-reduced_3dgs_tpu/shculling/gaussian_model.py:21-64).
+reduced_3dgs_tpu/shculling/gaussian_model.py:21-78).
 
 The int buffer ``_degrees`` [N] selects how many SH bands each Gaussian
 uses; ``masked_features`` multiplies the rest coefficients beyond it by
 zero, so they neither colour the render nor receive gradient (exactly zero:
-the product's gradient is the mask times the cotangent).
+the product's gradient is the mask times the cotangent). ``aux_state`` and
+``aux_set`` carry it through the trainer's row removal, and SH culling sets
+it with ``aux_set``.
 """
 from __future__ import annotations
 
@@ -21,10 +23,23 @@ class VariableSHGaussianModel(GaussianModel):
         super().__init__(sh_degree, device=device)
         self.register_buffer("_degrees", torch.zeros((0,), dtype=torch.int32, device=self.device))
 
-    def masked_features(self) -> torch.Tensor:
-        mask = sh_ops.degree_coeff_mask(self._degrees, self.max_sh_degree)
-        rest = self._features_rest * mask[..., None]
-        return torch.cat([self._features_dc, rest], dim=1)
+    def masked_features(self, params=None, degrees=None) -> torch.Tensor:
+        """As GaussianModel.masked_features, with the rest coefficients
+        beyond ``degrees`` (the model's own when None) zeroed."""
+        params = self.param_dict() if params is None else params
+        degrees = self._degrees if degrees is None else degrees
+        mask = sh_ops.degree_coeff_mask(degrees, self.max_sh_degree)
+        rest = params["features_rest"] * mask[..., None]
+        return torch.cat([params["features_dc"], rest], dim=1)
+
+    def aux_state(self):
+        """``_degrees`` moves with the rows when the trainer removes some
+        (the JAX model's ``update_points_remove``)."""
+        return {"degrees": self._degrees}
+
+    def aux_set(self, aux):
+        self._degrees = aux["degrees"]
+        return self
 
     def init_degrees(self):
         """Every Gaussian at the maximum degree."""

@@ -1,5 +1,5 @@
 """BaseTrainer and Trainer: the training engine (counterpart of
-reduced_3dgs_tpu/trainer/base.py:33-221, 465-493, 531-586).
+reduced_3dgs_tpu/trainer/base.py:33-221, 465-519, 531-586).
 
 One step renders the camera from the model's parameters with a zero
 screen-space offset that requires grad, takes the loss
@@ -59,6 +59,9 @@ class BaseTrainer(AbstractTrainer):
         self.lambda_sh_sparsity = lambda_sh_sparsity
         self._curr_step = 0
         self._photometric_loss = None
+        # (loss, render output, camera) of the last step, detached: the
+        # densifier chain reads it after the step.
+        self._last_step_io_engine = None
 
         n = model.num_points
         device = model._xyz.device
@@ -161,13 +164,45 @@ class BaseTrainer(AbstractTrainer):
             p.grad = None
 
     def update(self, outer: AbstractTrainer, camera):
-        """One step with the outermost composed loss: (detached loss, out)."""
+        """One step with the outermost composed loss: (loss, out), both
+        detached, which the engine also keeps as ``_last_step_io_engine``
+        with the camera."""
         self.maybe_advance_schedules()
         loss, out, offset = self.forward_loss(outer.loss_pure(), camera, outer.loss_scalars())
         loss.backward()
         self.optimizer_step(out, offset)
         self._curr_step += 1
-        return loss.detach(), out
+        loss = loss.detach()
+        out = {k: v.detach() if torch.is_tensor(v) else v for k, v in out.items()}
+        self._last_step_io_engine = (loss, out, camera)
+        return loss, out
+
+    # -------------------------------------------------- densification plumbing
+    def state_trees(self) -> dict:
+        """Every per-Gaussian [N, ...] tensor that must move together when
+        rows are removed, by group: the parameters, Adam's moments, the
+        model's aux state and the densification statistics."""
+        return {
+            "params": {k: p.detach() for k, p in self.model.param_dict().items()},
+            "adam_m": self.adam.m,
+            "adam_v": self.adam.v,
+            "aux": self.model.aux_state(),
+            "accum": {
+                "xyz_grad_accum": self.xyz_grad_accum,
+                "denom": self.xyz_grad_denom,
+                "max_radii2d": self.max_radii2d,
+            },
+        }
+
+    def set_state_trees(self, trees: dict):
+        """Install ``state_trees``-shaped state: new parameters, Adam moments
+        (the step count is kept), aux state and statistics."""
+        self.model.set_parameters(trees["params"])
+        self.adam = AdamState(count=self.adam.count, m=trees["adam_m"], v=trees["adam_v"])
+        self.model.aux_set(trees["aux"])
+        self.xyz_grad_accum = trees["accum"]["xyz_grad_accum"]
+        self.xyz_grad_denom = trees["accum"]["denom"]
+        self.max_radii2d = trees["accum"]["max_radii2d"]
 
     def reset_densification_stats(self):
         self.xyz_grad_accum.zero_()

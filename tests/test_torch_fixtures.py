@@ -97,3 +97,40 @@ def jax_model(params, degrees, render_backend="tiled"):
 def torch_model(params, degrees):
     from reduced_3dgs_torch.shculling import VariableSHGaussianModel
     return VariableSHGaussianModel(3, device="cpu").load_numpy(params, degrees)
+
+
+def views_np(n_views, height, width):
+    """Camera dicts of ``n_views`` views turning about y around the default
+    camera, with small translations."""
+    return [camera_np(height, width, R=rotation_y(0.08 * (i - (n_views - 1) / 2)),
+                      T=np.array([0.05 * i, -0.03 * i, 0.02 * i], np.float32))
+            for i in range(n_views)]
+
+
+def jax_dataset(cams, images=None):
+    from reduced_3dgs_tpu.dataset import CameraDataset, build_camera
+    return CameraDataset([
+        build_camera(image_height=c["height"], image_width=c["width"], FoVx=c["fovx"],
+                     FoVy=c["fovy"], R=c["R"], T=c["T"],
+                     **({} if images is None else {"ground_truth_image": images[i]}))
+        for i, c in enumerate(cams)])
+
+
+def torch_dataset(cams, images=None):
+    from reduced_3dgs_torch.dataset.camera import build_camera
+    from reduced_3dgs_torch.dataset.dataset import CameraDataset
+    return CameraDataset([
+        build_camera(c["height"], c["width"], c["fovx"], c["fovy"], R=c["R"], T=c["T"],
+                     ground_truth_image=None if images is None else images[i], device="cpu")
+        for i, c in enumerate(cams)])
+
+
+def assert_decision_margin(score, threshold, rel=1e-5):
+    """No score lies within ``rel`` (relative) of ``threshold`` unless it
+    equals it exactly, so that the decisions ``score <= threshold`` and
+    ``score < threshold`` cannot flip between two implementations whose
+    scores differ by less than that."""
+    score = np.asarray(score, np.float64)
+    d = np.abs(score - float(threshold))
+    near = (d > 0) & (d <= rel * max(abs(float(threshold)), 1e-12))
+    assert not near.any(), (float(threshold), score[near])

@@ -39,14 +39,19 @@ def test_port_imports_no_jax():
         assert not loaded, loaded
         for name in ("reduced_3dgs_torch.train", "reduced_3dgs_torch.trainer.base",
                      "reduced_3dgs_torch.trainer.optimizer",
-                     "reduced_3dgs_torch.utils.schedule"):
+                     "reduced_3dgs_torch.utils.schedule",
+                     "reduced_3dgs_torch.trainer.functional",
+                     "reduced_3dgs_torch.trainer.densifier.abc",
+                     "reduced_3dgs_torch.importance.trainer",
+                     "reduced_3dgs_torch.shculling.trainer",
+                     "reduced_3dgs_torch.ops.shculling_stats"):
             assert name in names, name
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 21  # every module was imported
+    assert int(out.stdout.strip()) >= 28  # every module was imported
 
 
 def test_render_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
@@ -84,6 +89,34 @@ def test_composite_fwd_rejects_other_devices_and_bad_inputs():
         composite.composite_fwd(torch.zeros((9, 4)), rs, rs, 1)
     with pytest.raises(ValueError, match="int32"):
         composite.composite_fwd(torch.zeros((10, 4)), rs.long(), rs, 1)
+
+
+def test_composite_fwd_stats_cpu_uses_plain_version():
+    """The statistics compositor on CPU tensors runs its plain version and
+    launches no kernel, neither its own nor the forward compositor's."""
+    from reduced_3dgs_torch.ops.rasterize import composite
+    e = torch.zeros((10, 3))
+    e[2] = e[4] = 1.0
+    e[5] = 0.5
+    e[0] = e[1] = 3.0
+    rs = torch.tensor([0, 3], dtype=torch.int32)
+    re = torch.tensor([3, 3], dtype=torch.int32)
+    before = (composite.composite_fwd_stats.launches, composite.composite_fwd.launches)
+    out = composite.composite_fwd_stats(e, rs, re, tiles_x=2)
+    plain = composite.composite_fwd_stats_plain(e, rs, re, tiles_x=2)
+    assert (composite.composite_fwd_stats.launches, composite.composite_fwd.launches) == before
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+    stats = out[3]
+    assert stats.shape == (4, 3)
+    # Three equal entries: every pixel one blends into, the next two do too
+    # (T stays far above 1e-4), so the counts agree; at pixel (3, 3) the
+    # incoming T is 1, 0.5 and 0.25.
+    assert stats[0, 0] == stats[0, 1] == stats[0, 2] > 0
+    assert torch.equal(stats[1], stats[0] * 0.5)
+    assert (stats[3, 0] > stats[3, 1] > stats[3, 2]).item()
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        composite.composite_fwd_stats(e.to("meta"), rs.to("meta"), re.to("meta"), 2)
 
 
 def test_composite_bwd_cpu_uses_plain_version():
