@@ -5,10 +5,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
   phase 0  card name, power limit and software versions
   phase 1  build every CUDA kernel from the sources in the checkout, one
-           nvcc process per source, all at once
+           nvcc process per source, all at once, and print each kernel's
+           registers, shared memory and spills as ptxas reports them
   phase 2  the bench scene: 200,000 Gaussians at SH degree 3, 544x976, and
            its perturbed copy (bench.py's perturbation)
-  phase 3  each kernel against its plain PyTorch version on the card, on
+  phase 3  the bench scene's entries per tile (mean, p99, max), then each
+           kernel against its plain PyTorch version on the card, on
            the bench scene, an opaque scene and a fully culled scene: the
            forward compositor, the statistics compositor (also against the
            forward compositor, bit for bit), the backward compositor
@@ -18,7 +20,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            4-view COLMAP dataset of the bench scene, with the kernels'
            launch counts read around it
   phase 5  timing with CUDA events (median of 20 after warm-up): each
-           kernel and its plain version, a render and a training step with
+           kernel and its plain version (and the share of its bound it
+           reaches), a render and a training step with
            their stage splits, an importance-pruning sweep and an SH cull
            over the 4 views, and the device idle share under torch.profiler
   phase 6  the training path: train.training() with a Trainer for 20 steps
@@ -495,6 +498,12 @@ def run(tmp):
         _build.load_library(name)
     log(f"phase 1: built and loaded {list(_build.SOURCES)} (launchers "
         f"{sorted(_build.ARGTYPES)}) in {time.perf_counter() - t0:.1f} s")
+    for name in _build.SOURCES:
+        for kernel, u in sorted(_build.resource_usage(name).items()):
+            log(f"phase 1: {kernel} ({name}.cu): {u['registers']} registers, "
+                f"{u['smem_bytes']} B static shared memory, spill stores "
+                f"{u['spill_stores']} B, spill loads {u['spill_loads']} B, stack "
+                f"{u['stack_bytes']} B")
 
     # ---------------------------------------------------------------- phase 2
     params = bench_scene(0)
@@ -510,6 +519,10 @@ def run(tmp):
     # ---------------------------------------------------------------- phase 3
     with torch.no_grad():
         bench = compare_compositor("bench", model, cameras[0])
+        per_tile = (bench["inputs"][2] - bench["inputs"][1]).double()
+        log(f"phase 3 [bench]: entries per tile over {per_tile.numel()} tiles: mean "
+            f"{float(per_tile.mean()):.2f}, p99 {float(per_tile.quantile(0.99)):.2f}, max "
+            f"{int(per_tile.max())}")
         opaque_params = dict(params, opacity=np.full_like(params["opacity"], 8.0))
         opaque_model = VariableSHGaussianModel(3, device=dev).load_numpy(opaque_params)
         opaque = compare_compositor("opaque", opaque_model, cameras[0])
@@ -603,7 +616,8 @@ def run(tmp):
     log(f"phase 5 [{card}]: composite_fwd kernel {kernel_ms:.4f} ms (again {kernel_ms_2:.4f}), "
         f"plain {plain_ms:.4f} ms, K={bench['k']}, scanned pairs {scanned}, "
         f"bytes {n_bytes}, bound {fwd_bound:.4f} ms "
-        f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})")
+        f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); share of the bound "
+        f"{fwd_bound / kernel_ms:.4f}")
 
     r_e, r_rs, r_re, r_tx = real["inputs"]
     bwd_args = (r_e, r_rs, r_re, r_tx, real["final_t"], real["latch"], real["g_color4"],
@@ -624,7 +638,8 @@ def run(tmp):
     log(f"phase 5 [{card}]: composite_bwd kernel {bwd_ms:.4f} ms (again {bwd_ms_2:.4f}), "
         f"plain {bwd_plain_ms:.4f} ms, K={real['k']}, pairs before the latch {bwd_pairs}, "
         f"of them contributing {bwd_contrib}, operations {bwd_ops}, bytes {bwd_bytes}, bound {bwd_bound:.4f} ms "
-        f"(bytes {bwd_bytes_ms:.4f}, operations {bwd_ops_ms:.4f})")
+        f"(bytes {bwd_bytes_ms:.4f}, operations {bwd_ops_ms:.4f}); share of the bound "
+        f"{bwd_bound / bwd_ms:.4f}")
     del bwd_args
 
     # The statistics compositor at the bench scene, camera 0, beside B1 again.
@@ -644,7 +659,8 @@ def run(tmp):
         f"{stats_ms_2:.4f}), plain {stats_plain_ms:.4f} ms, composite_fwd again "
         f"{kernel_ms_3:.4f} ms; K={bench['k']}, scanned pairs {scanned}, of them contributing "
         f"{stats_contrib}, operations {stats_ops}, bytes {stats_bytes}, bound "
-        f"{stats_bound:.4f} ms (bytes {stats_bytes_ms:.4f}, operations {stats_ops_ms:.4f})")
+        f"{stats_bound:.4f} ms (bytes {stats_bytes_ms:.4f}, operations {stats_ops_ms:.4f}); "
+        f"share of the bound {stats_bound / stats_ms:.4f}")
 
     # The two reduction events over the 4 views at the bench scene: an
     # importance-pruning sweep (4 statistics renders and the scores) and an

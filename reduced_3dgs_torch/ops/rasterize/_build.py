@@ -1,17 +1,22 @@
 """Build and load the hand-written CUDA kernels.
 
 Each source ``csrc/<name>.cu`` holds one or more kernels, each with a plain
-C launcher. It is compiled by nvcc for sm_90a into a shared library under
-``reduced_3dgs_torch/_build/`` (git-ignored) at first use, and loaded with
-ctypes. The library's file name carries a hash of its source and flags, so
-an edited source is rebuilt. Nothing here runs at import time.
+C launcher, and may include the headers ``csrc/*.cuh``. It is compiled by
+nvcc for sm_90a into a shared library under ``reduced_3dgs_torch/_build/``
+(git-ignored) at first use, and loaded with ctypes. The library's file name
+carries a hash of its source, the headers and the flags, so an edited source
+or header is rebuilt. nvcc's output, with ptxas's report of each
+kernel's registers, shared memory and spills (``-Xptxas -v``), is kept beside
+the library and read by ``resource_usage``. Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -19,22 +24,23 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC_DIR)
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 # C signature of each kernel's launcher, by symbol; every launcher returns a
-# cudaError_t.
+# cudaError_t. tile_order is int32 [num_tiles] scratch that the launcher
+# fills (the order in which blocks take tiles) before it launches the kernel.
 ARGTYPES = {
-    # composite_fwd(e, K, range_start, range_end, num_tiles, tiles_x,
-    #               color4, final_t, latch, stream)
-    "composite_fwd": (_p, _i, _p, _p, _i, _i, _p, _p, _p, _p),
-    # composite_fwd_stats(e, K, range_start, range_end, num_tiles, tiles_x,
-    #                     color4, final_t, latch, stats, stream)
-    "composite_fwd_stats": (_p, _i, _p, _p, _i, _i, _p, _p, _p, _p, _p),
-    # composite_bwd(e, K, range_start, range_end, num_tiles, tiles_x,
-    #               final_t, latch, g_color4, g_t, grads, stream)
-    "composite_bwd": (_p, _i, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p),
+    # composite_fwd(e, K, range_start, range_end, tile_order, num_tiles,
+    #               tiles_x, color4, final_t, latch, stream)
+    "composite_fwd": (_p, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p),
+    # composite_fwd_stats(e, K, range_start, range_end, tile_order, num_tiles,
+    #                     tiles_x, color4, final_t, latch, stats, stream)
+    "composite_fwd_stats": (_p, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p),
+    # composite_bwd(e, K, range_start, range_end, tile_order, num_tiles,
+    #               tiles_x, final_t, latch, g_color4, g_t, grads, stream)
+    "composite_bwd": (_p, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p),
 }
 # The source (csrc/<name>.cu, and the library built from it) of each symbol.
 SOURCE_OF = {"composite_fwd": "composite_fwd", "composite_fwd_stats": "composite_fwd",
@@ -51,10 +57,16 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def _log_path(library: str) -> str:
+    return library[:-len(".so")] + ".nvcc.txt"
 
 
 def build_libraries(names) -> None:
@@ -78,6 +90,8 @@ def build_libraries(names) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
         else:
+            with open(_log_path(out), "w") as f:
+                f.write(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -100,3 +114,55 @@ def load_library(name: str) -> ctypes.CDLL:
     RuntimeError with nvcc's output if the build fails."""
     build_libraries([name])
     return set_argtypes(ctypes.CDLL(_library_path(name)), name)
+
+
+def _kernel_name(mangled: str) -> str:
+    """The kernel's identifier in a mangled name, with its bool template
+    argument: ``composite_fwd_kernel<false>``. Reads the length-prefixed
+    names of ``_Z<name>`` or ``_ZN<name><name>...`` in order."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + m.end()
+        pos = start + int(m.group())
+        ident = mangled[start:pos]
+        if ident.endswith("_kernel"):
+            for code, arg in (("ILb0E", "<false>"), ("ILb1E", "<true>")):
+                if mangled.startswith(code, pos):
+                    return ident + arg
+            return ident
+    return mangled
+
+
+def parse_ptxas(log: str) -> dict:
+    """{kernel: {"registers", "smem_bytes", "spill_stores", "spill_loads",
+    "stack_bytes"}} from nvcc's ``-Xptxas -v`` output."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            usage[name] = dict(registers=None, smem_bytes=0, spill_stores=0, spill_loads=0,
+                               stack_bytes=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage[name].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            usage[name]["smem_bytes"] = int(m.group(1)) if m else 0
+    return usage
+
+
+def resource_usage(name: str) -> dict:
+    """Registers, shared memory and spills of each kernel of
+    ``csrc/<name>.cu`` as ptxas reported them when it was built (built
+    first if it is not)."""
+    build_libraries([name])
+    with open(_log_path(_library_path(name))) as f:
+        return parse_ptxas(f.read())

@@ -207,9 +207,10 @@ def _launch_fwd(wrapper, e, range_start, range_end, tiles_x):
     if T > 0:
         with torch.cuda.device(e.device):
             stream = torch.cuda.current_stream(e.device).cuda_stream
+            order = torch.empty(T, dtype=torch.int32, device=e.device)  # filled by the launch
             err = getattr(lib, symbol)(
                 e.data_ptr(), K, range_start.data_ptr(), range_end.data_ptr(),
-                T, tiles_x, *(t.data_ptr() for t in outs), stream)
+                order.data_ptr(), T, tiles_x, *(t.data_ptr() for t in outs), stream)
         if err != 0:
             raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
         wrapper.launches += 1
@@ -283,7 +284,8 @@ def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.T
 
     CPU tensors go to ``composite_bwd_plain``. CUDA tensors launch the CUDA
     kernel and add one to ``composite_bwd.launches``; any other device
-    raises."""
+    raises. The kernel sums each entry's per-pixel terms with shared-memory
+    float atomics, so the last bits of a gradient vary between runs."""
     _check_inputs(e, range_start, range_end)
     T = range_start.shape[0]
     for nm, t, width, dtype in (("final_t", final_t, 1, torch.float32),
@@ -312,10 +314,11 @@ def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.T
     if T > 0:
         with torch.cuda.device(e.device):
             stream = torch.cuda.current_stream(e.device).cuda_stream
+            order = torch.empty(T, dtype=torch.int32, device=e.device)  # filled by the launch
             err = lib.composite_bwd(
-                e.data_ptr(), K, range_start.data_ptr(), range_end.data_ptr(), T, tiles_x,
-                final_t.data_ptr(), latch.data_ptr(), g_color4.data_ptr(), g_t.data_ptr(),
-                grads.data_ptr(), stream)
+                e.data_ptr(), K, range_start.data_ptr(), range_end.data_ptr(),
+                order.data_ptr(), T, tiles_x, final_t.data_ptr(), latch.data_ptr(),
+                g_color4.data_ptr(), g_t.data_ptr(), grads.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
         composite_bwd.launches += 1

@@ -30,14 +30,14 @@ FAULTS = {
     # The latching entry itself contributes.
     "latch_inclusive": ("bool contrib = (lo + j < lat)", "bool contrib = (lo + j <= lat)"),
     # The conic cross term with a factor 1/2.
-    "cross_term_half": ("g[3] = dpower * (-dx * dy);", "g[3] = dpower * (-0.5f * dx * dy);"),
+    "cross_term_half": ("vg[3] = dpower * (-dx * dy);", "vg[3] = dpower * (-0.5f * dx * dy);"),
     # The weight from the outgoing T instead of the incoming one.
     "weight_outgoing_t": ("const float w = alpha * T_in;", "const float w = alpha * T;"),
     # Gradient through the alpha clamp (only the opaque scene reaches it).
     "clamp_passes_gradient": ("raw < kAlphaMax ? dabar : 0.0f", "dabar"),
-    # The bottom two pixel rows of every tile left out of the tile sum.
-    "last_warp_dropped": ("for (int w = 0; w < kWarps; ++w) s",
-                          "for (int w = 0; w < kWarps - 1; ++w) s"),
+    # The last warp's share (the bottom-right 8 x 4 pixels of every tile)
+    # left out of the tile's sums.
+    "last_warp_dropped": ("if (store) atomicAdd(", "if (store && warp != kWarps - 1) atomicAdd("),
 }
 
 

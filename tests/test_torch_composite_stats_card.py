@@ -35,7 +35,7 @@ FAULTS = {
     # The latching entry itself counts.
     "latch_inclusive": ("contrib = b == kContrib;", "contrib = b != kSkip;"),
     # count x alpha instead of count x opacity.
-    "alpha_for_opacity": ("v[1] = fields[5][j];", "v[1] = w / T_in;"),
+    "alpha_for_opacity": ("v[1] = q[1].y;", "v[1] = w / T_in;"),
     # Entries past the block-wide exit keep whatever the buffer held.
     "unvisited_unwritten": ("stats[static_cast<size_t>(s) * K + idx] = 0.0f;",
                             "(void)s;"),
