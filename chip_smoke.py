@@ -21,7 +21,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            launch counts read around it
   phase 5  timing with CUDA events (median of 20 after warm-up): each
            kernel and its plain version (and the share of its bound it
-           reaches), a render and a training step with
+           reaches; the statistics compositor also by its device time
+           under torch.profiler), a render and a training step with
            their stage splits, an importance-pruning sweep and an SH cull
            over the 4 views, and the device idle share under torch.profiler
   phase 6  the training path: train.training() with a Trainer for 20 steps
@@ -101,6 +102,9 @@ STAT_FIELDS = ("count", "count_op", "w", "T_in")
 TOL_SSIM_GRAD_REL = 1e-5
 MIN_PSNR_DB = 40.0
 FIELDS = ("x", "y", "A", "B", "C", "op", "r", "g", "b", "depth")
+# The kernels by ptxas name, with their ids in PERF.md's table.
+KERNEL_IDS = {"composite_fwd_kernel<false>": "B1", "composite_fwd_kernel<true>": "B2",
+              "composite_bwd_kernel": "B3"}
 
 
 def log(msg):
@@ -202,6 +206,12 @@ def device_busy(fn, calls=5):
              for a in top], by_name)
 
 
+def kernel_device_ms(by_name, kernel):
+    """Device ms per call of the kernels whose name holds `kernel`, from
+    device_busy's last item."""
+    return sum(ms for key, ms in by_name.items() if kernel in key)
+
+
 def print_busy(card, what, stats):
     n_launch, busy_ms, wall_ms, top, _ = stats
     if busy_ms > 0:
@@ -260,8 +270,9 @@ def compare_stats(name, case):
     colour, T and latch must equal the forward kernel's bit for bit, and its
     statistics its plain version's, per entry and per Gaussian: counts
     exactly outside the tiles whose latch differs between kernel and plain
-    version, each score within TOL_STATS_REL of its largest plain value.
-    Raises past the bars."""
+    version, count x opacity there bit for bit per entry (both round
+    float(count) * opacity once), each score within TOL_STATS_REL of its
+    largest plain value. Raises past the bars."""
     from reduced_3dgs_torch.ops.rasterize.composite import (composite_fwd_stats,
                                                             composite_fwd_stats_plain)
     e, rs, re, tiles_x = case["inputs"]
@@ -281,6 +292,7 @@ def compare_stats(name, case):
     ok_g = torch.ones(n, dtype=torch.bool, device=e.device)
     ok_g[s_gidx[~ok]] = False
     count_diff = (int((ks[0] != ps[0])[ok].sum()), int((kn[0] != pn[0])[ok_g].sum()))
+    count_op_diff = int((ks[1] != ps[1])[ok].sum())
     worst, max_abs, parts = 0.0, 0.0, []
     for level, kv, pv, sel in (("entry", ks, ps, ok), ("gaussian", kn, pn, ok_g)):
         for f in range(1, 4):
@@ -296,12 +308,13 @@ def compare_stats(name, case):
     log(f"phase 3 [{name}]: composite_fwd_stats colour, T and latch equal to composite_fwd "
         f"bit for bit: {same}; tiles with a latch mismatch {int(bad_tiles.sum())}; count "
         f"mismatches outside them: {count_diff[0]} entries, {count_diff[1]} Gaussians "
-        f"(of {K}, {n}); contributing pairs {int(ps[0].sum())}; max|d|/max|plain| per score: "
+        f"(of {K}, {n}); entries whose count x opacity differs in any bit: {count_op_diff}; "
+        f"contributing pairs {int(ps[0].sum())}; max|d|/max|plain| per score: "
         + ", ".join(parts) + f"; worst ratio {worst:.3e} (bar {TOL_STATS_REL})")
     if not same:
         raise AssertionError(f"{name}: composite_fwd_stats composites otherwise than "
                              "composite_fwd")
-    if count_diff != (0, 0) or worst > TOL_STATS_REL:
+    if count_diff != (0, 0) or count_op_diff != 0 or worst > TOL_STATS_REL:
         raise AssertionError(f"{name}: composite_fwd_stats disagrees with its plain version")
     return dict(max_abs_err=max_abs, stats=ks, per_gaussian=kn,
                 contributing=int(ps[0].sum()))
@@ -500,7 +513,8 @@ def run(tmp):
         f"{sorted(_build.ARGTYPES)}) in {time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
         for kernel, u in sorted(_build.resource_usage(name).items()):
-            log(f"phase 1: {kernel} ({name}.cu): {u['registers']} registers, "
+            ident = f", {KERNEL_IDS[kernel]}" if kernel in KERNEL_IDS else ""
+            log(f"phase 1: {kernel} ({name}.cu{ident}): {u['registers']} registers, "
                 f"{u['smem_bytes']} B static shared memory, spill stores "
                 f"{u['spill_stores']} B, spill loads {u['spill_loads']} B, stack "
                 f"{u['stack_bytes']} B")
@@ -661,6 +675,18 @@ def run(tmp):
         f"{stats_contrib}, operations {stats_ops}, bytes {stats_bytes}, bound "
         f"{stats_bound:.4f} ms (bytes {stats_bytes_ms:.4f}, operations {stats_ops_ms:.4f}); "
         f"share of the bound {stats_bound / stats_ms:.4f}")
+    with torch.no_grad():
+        stats_dev = device_busy(lambda: composite_fwd_stats(e, rs, re, tiles_x))[4]
+    stats_dev_ms = kernel_device_ms(stats_dev, "composite_fwd_kernel<true>")
+    order_dev_ms = kernel_device_ms(stats_dev, "tile_order_kernel")
+    if stats_dev_ms > 0:
+        log(f"phase 5 [{card}]: composite_fwd_stats device time under torch.profiler "
+            f"{stats_dev_ms:.4f} ms (+ {order_dev_ms:.4f} ms of tile order) against "
+            f"{stats_ms:.4f} ms by CUDA events; share of the bound by device time "
+            f"{stats_bound / stats_dev_ms:.4f}")
+    else:
+        log("phase 5: composite_fwd_stats device time not measured (the profiler saw no "
+            "device time)")
 
     # The two reduction events over the 4 views at the bench scene: an
     # importance-pruning sweep (4 statistics renders and the scores) and an
@@ -675,6 +701,7 @@ def run(tmp):
     with torch.no_grad():
         prune_ms = cuda_ms(prune)
         n_pruned = int(prune().sum())
+        prune_busy = device_busy(prune)
     cull_model = VariableSHGaussianModel(3, device=dev).load_numpy(params)
     start_dc = cull_model._features_dc.detach().clone()
     start_rest = cull_model._features_rest.detach().clone()
@@ -695,7 +722,12 @@ def run(tmp):
         f"(ImportancePruner's defaults: {n_pruned} of {model.num_points} to prune); "
         f"cull_sh_bands over {len(views)} views {cull_ms:.4f} ms (SHCuller's defaults; "
         f"degrees 0-3 after: {degree_hist})")
+    print_busy(card, "importance sweep", prune_busy)
     print_busy(card, "SH cull", cull_busy)
+    b2_ms = [kernel_device_ms(busy[4], "composite_fwd_kernel<true>")
+             for busy in (prune_busy, cull_busy)]
+    log(f"phase 5 [{card}]: composite_fwd_stats device time under the profiler per importance "
+        f"sweep {b2_ms[0]:.4f} ms, per SH cull {b2_ms[1]:.4f} ms")
     del cull_model, start_dc, start_rest
 
     stages = {"preprocess": [], "binning_sort": [], "gather_kernel": [], "assembly": []}
@@ -760,7 +792,7 @@ def run(tmp):
                 step_stages[key].append(ev[i].elapsed_time(ev[i + 1]))
     step_split = {k: statistics.median(v) for k, v in step_stages.items()}
     step_busy = device_busy(lambda: step_trainer.step(step_cam))
-    b3_share = sum(ms for key, ms in step_busy[4].items() if "composite_bwd" in key)
+    b3_share = kernel_device_ms(step_busy[4], "composite_bwd")
     log(f"phase 5 [{card}]: training step {step_ms:.4f} ms (Trainer.step, N={N_GAUSSIANS}, "
         f"{HEIGHT}x{WIDTH}, SH degree 3); stage medians "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in step_split.items())

@@ -29,7 +29,14 @@
 // and card): no cull +0.15 to +0.17 ms, warps of two pixel rows +0.03 to
 // +0.04 ms, tiles in index order +0.03 to +0.04 ms; FMA in the gate, no
 // copy overlap and a cap of 32 registers within the noise. The longest
-// tiles now set the span: each takes ~130 us of the kernel's ~140 us.
+// tiles now set the span: each takes ~130 us of the kernel's ~140 us. The
+// statistics form's first design visited every entry with every warp
+// (5.0e6 visits) and summed four values per visit with 5-step butterflies
+// into 32 KB of per-warp partials: 0.48 ms of device time, of which the
+// shuffles took ~0.045 ms. On the forward form's walk with the slots below
+// it takes ~0.22 ms (same tool and card): no cull +0.22 ms, warps of two
+// pixel rows +0.04 ms; shared atomics in place of the slots, or the
+// reduce-scatter's shuffles removed, within the noise.
 //
 // Design. One thread block per 16x16 tile, one thread per pixel; blocks
 // take tiles longest first (tile_common.cuh's order kernel, launched before
@@ -40,39 +47,42 @@
 // Batches are double-buffered with cp.async: each thread copies one entry of
 // the next batch while the block walks this one, with one barrier per batch.
 // A warp covers an 8 x 4 box of pixels and takes the batch 32 entries at a
-// time: each lane tests one entry's ellipse against the box
-// (tile_common::may_touch, conservative), and the warp's pixels blend, front
-// to back, the entries a ballot keeps, with T, the colour and depth sums
-// and the latch in registers; a pixel stops at its latch, a warp when all
-// of its pixels have. Once every pixel of the block has latched,
-// __syncthreads_count ends the walk. Threads of pixels outside the image
-// stay in the loop, so every thread reaches every barrier; they also count
-// in the statistics, as in the JAX package (its pixel grid has no in-image
-// mask). The gate's quadratic form is rounded op by op in the plain
-// version's order, so that the statistics' counts equal the plain
+// time (walk_batch, which both forms run): each lane tests one entry's
+// ellipse against the box (tile_common::may_touch, conservative), and the
+// warp's pixels blend, front to back, the entries a ballot keeps, with T,
+// the colour and depth sums and the latch in registers; a pixel stops at its
+// latch, a warp when all of its pixels have. Once every pixel of the block
+// has latched, __syncthreads_count ends the walk. Threads of pixels outside
+// the image stay in the loop, so every thread reaches every barrier; they
+// also count in the statistics, as in the JAX package (its pixel grid has
+// no in-image mask). The gate's quadratic form is rounded op by op in the
+// plain version's order, so that the statistics' counts equal the plain
 // version's.
 //
 // Statistics (kWithStats): for each sorted entry, over the tile's pixels
 // where it contributes (gated and before the pixel's latch), the count, the
-// count times the entry's opacity (summed as op per pixel), the sum of the
-// blend weights w = alpha T_in and the sum of the incoming transmittance. Each
-// thread then visits every entry of the batch, latched or not, so that the
-// per-entry sums are warp-uniform: a __shfl_xor_sync butterfly per statistic
-// (skipped when __any_sync finds no contributing lane), the eight warp sums
-// combined from shared memory after the batch (4 x 8 floats per entry, 32 KB
-// per batch, dynamic shared memory beside the 24 KB of staging). Each sorted
-// entry belongs to one tile, so one block writes its statistics once: no
-// atomics. Entries the walk never reaches (past the block-wide exit) are
-// written as zeros. Both forms blend through the same inlined function, so
-// their colour, T and latch are the same bits.
+// count times the entry's opacity, the sum of the blend weights
+// w = alpha T_in and the sum of the incoming transmittance. The walk is the
+// forward form's, cull and stop included, so both forms blend the same
+// entries in the same order through the same inlined code, and their
+// colour, T and latch are the same bits. At each entry a warp visits, the
+// count is __popc of a ballot of the contributing lanes, and the two float
+// sums take one reduce-scatter (5 shuffles, skipped when no lane
+// contributes). Each warp writes its count and sums into its own slot of
+// the entry (an 8-bit count and two floats per warp and entry of the batch,
+// 18 KB beside the 24 KB of staging, so five blocks fit on an SM, no
+// dynamic shared memory): the lanes that hold them for a visited
+// entry, the lane that tested it for an entry the ballot dropped, and zeros
+// from all lanes for the entries after the warp's stop. After a barrier,
+// one thread per entry adds the eight slots in warp order and writes the
+// entry's four statistics, the second as float(count) * opacity, the plain
+// version's own rounding. So every statistic is the same bits from run to
+// run. Each sorted entry belongs to one tile, so one block writes it once:
+// no global atomics. Entries past the block-wide exit are written as zeros.
 //
-// The statistics form shares the staging, the tile order and the warps'
-// boxes (a warp's sums run over its 32 pixels wherever they lie), not the
-// cull: each of its warps visits every entry of the batch.
-//
-// Left for a later change: the statistics' butterflies as a reduce-scatter
-// and the warps' cull (as in composite_bwd.cu), and fusing the gather
-// e = fields10[:, s_gidx] into the staging.
+// Left for a later change: fusing the gather e = fields10[:, s_gidx] into
+// the staging and the statistics' per-Gaussian sum (an index_add_ in the
+// callers) into the combine.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -89,7 +99,6 @@ constexpr int kFields = 10;
 constexpr int kStride = 12;  // floats per staged entry: three float4
 constexpr int kWarpWidth = 8;  // a warp covers 8 x 4 pixels of the tile
 constexpr int kStats = 4;
-constexpr int kStatsBytes = kPixels * kStats * kWarps * sizeof(float);
 constexpr unsigned kFullMask = 0xffffffffu;
 using tile_common::kAlphaEps;
 constexpr float kAlphaMax = 0.99f;
@@ -97,11 +106,41 @@ constexpr float kTEps = 1e-4f;
 
 enum Blend { kSkip, kContrib, kLatch };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    v += __shfl_xor_sync(kFullMask, v, offset);
+// A pixel's state: its transmittance, colour and depth sums, the sorted
+// position of its latching entry (the tile's range end until it latches)
+// and whether it has latched.
+struct Pixel {
+  float T, cr, cg, cb, cd;
+  int lat, done;
+};
+
+// kWithStats: per warp and entry of the batch, the warp's count of
+// contributing pixels and its sums of w and of T_in.
+template <bool kWithStats>
+struct StatSlots {
+  unsigned char count[kWarps][kPixels];
+  float w[kWarps][kPixels];
+  float t[kWarps][kPixels];
+
+  __device__ __forceinline__ void clear(int warp, int j) {
+    count[warp][j] = 0;
+    w[warp][j] = 0.0f;
+    t[warp][j] = 0.0f;
   }
+};
+
+template <>
+struct StatSlots<false> {};
+
+// Reduce-scatter of the pair (a, b) over the warp's lanes (the two-value
+// case of composite_bwd.cu's reduce_scatter): the first shuffle leaves b's
+// partial sums on lanes 16-31 and a's on the others, four more add each
+// half whole. Returns the warp sum of a on lanes 0-15 and of b on 16-31.
+__device__ __forceinline__ float reduce_scatter2(float a, float b, int lane) {
+  const bool upper = lane & 16;
+  float v = (upper ? b : a) + __shfl_xor_sync(kFullMask, upper ? a : b, 16);
+#pragma unroll
+  for (int offset = 8; offset > 0; offset >>= 1) v += __shfl_xor_sync(kFullMask, v, offset);
   return v;
 }
 
@@ -139,6 +178,59 @@ __device__ __forceinline__ Blend blend(const float4* q, float px, float py,
   return kContrib;
 }
 
+// One staged batch of n entries (sorted positions base ...) through the
+// warp whose box is `box`, the walk both forms run: 32 entries at a time,
+// lane k tests entry j0 + k against the box, and the warp's pixels that
+// have not latched blend, front to back, the entries some pixel there can
+// blend; the warp stops once all of its pixels have latched. kWithStats:
+// also writes the warp's slot of every entry of the batch, once.
+template <bool kWithStats>
+__device__ __forceinline__ void walk_batch(const float4* batch, int n, int base,
+                                           const tile_common::WarpBox& box, int lane,
+                                           int warp, Pixel& p, StatSlots<kWithStats>& slots) {
+  const float px = box.px;
+  const float py = box.py;
+  int j0 = 0;
+  for (; j0 < n && !__all_sync(kFullMask, p.done); j0 += 32) {
+    const int jl = j0 + lane;
+    const float4* ql = batch + 3 * jl;
+    const bool hit =
+        jl < n && tile_common::may_touch(ql[0], ql[1], box.x0, box.x1, box.y0, box.y1);
+    if constexpr (kWithStats) {
+      if (jl < n && !hit) slots.clear(warp, jl);  // dropped by the cull
+    }
+    for (unsigned bits = __ballot_sync(kFullMask, hit); bits; bits &= bits - 1) {
+      const int j = j0 + __ffs(bits) - 1;
+      const float T_in = p.T;
+      float w = 0.0f;
+      Blend b = kSkip;
+      if (!p.done) {
+        b = blend(batch + 3 * j, px, py, p.T, p.cr, p.cg, p.cb, p.cd, w);
+        if (b == kLatch) {
+          p.lat = base + j;  // the latching entry is excluded too
+          p.done = 1;
+        }
+      }
+      if constexpr (kWithStats) {
+        const bool contrib = b == kContrib;
+        const unsigned who = __ballot_sync(kFullMask, contrib);
+        float sum = 0.0f;
+        // Warp-uniform branch: every lane of the warp takes the same side.
+        if (who) sum = reduce_scatter2(contrib ? w : 0.0f, contrib ? T_in : 0.0f, lane);
+        if (lane == 0) {
+          slots.count[warp][j] = __popc(who);
+          slots.w[warp][j] = sum;
+        } else if (lane == 16) {
+          slots.t[warp][j] = sum;
+        }
+      }
+    }
+  }
+  if constexpr (kWithStats) {
+    for (int j = j0 + lane; j < n; j += 32) slots.clear(warp, j);  // after the warp's stop
+  }
+}
+
 template <bool kWithStats>
 __global__ void __launch_bounds__(kPixels)
 composite_fwd_kernel(const float* __restrict__ e, int K,
@@ -148,15 +240,12 @@ composite_fwd_kernel(const float* __restrict__ e, int K,
                      float4* __restrict__ color4, float* __restrict__ final_t,
                      int* __restrict__ latch, float* __restrict__ stats) {
   __shared__ __align__(16) float stage[2][kPixels * kStride];
-  // kWithStats: per entry of the batch, statistic and warp, [kPixels][kStats][kWarps].
-  extern __shared__ float partial[];
+  __shared__ StatSlots<kWithStats> slots;
   const int tile = tile_order[blockIdx.x];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const tile_common::WarpBox box = tile_common::warp_box<kWarpWidth>(tile, tiles_x, tid);
-  const float px = box.px;
-  const float py = box.py;
   const int start = range_start[tile];
   const int end = range_end[tile];
 
@@ -173,80 +262,39 @@ composite_fwd_kernel(const float* __restrict__ e, int K,
     __pipeline_commit();
   };
 
-  float T = 1.0f;
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f, cd = 0.0f;
-  int lat = end;  // no latch
-  int done = 0;
+  Pixel p{1.0f, 0.0f, 0.0f, 0.0f, 0.0f, end, 0};
   int base = start;
   int buf = 0;
   if (start < end) stage_batch(start, 0);
   for (; base < end; base += kPixels, buf ^= 1) {
-    // The batch at `base` is staged, nobody reads the other buffer any more,
-    // and the block-wide exit.
+    // The batch at `base` is staged, nobody reads the other buffer or the
+    // slots any more, and the block-wide exit.
     __pipeline_wait_prior(0);
-    if (__syncthreads_count(done) == kPixels) break;
+    if (__syncthreads_count(p.done) == kPixels) break;
     if (base + kPixels < end) stage_batch(base + kPixels, buf ^ 1);
     const int n = min(kPixels, end - base);
     const float4* batch = reinterpret_cast<const float4*>(stage[buf]);
-    if constexpr (!kWithStats) {
-      // 32 entries at a time: lane k tests entry j0 + k against the warp's
-      // box of pixels, and the warp's pixels that have not latched blend
-      // the entries some pixel there can blend, front to back.
-      for (int j0 = 0; j0 < n && !__all_sync(kFullMask, done); j0 += 32) {
-        const int jl = j0 + lane;
-        const float4* ql = batch + 3 * jl;
-        const bool hit =
-            jl < n && tile_common::may_touch(ql[0], ql[1], box.x0, box.x1, box.y0, box.y1);
-        for (unsigned bits = __ballot_sync(kFullMask, hit); bits; bits &= bits - 1) {
-          const int j = j0 + __ffs(bits) - 1;
-          float w;
-          if (!done && blend(batch + 3 * j, px, py, T, cr, cg, cb, cd, w) == kLatch) {
-            lat = base + j;  // the latching entry is excluded too
-            done = 1;
-          }
-        }
-      }
-    } else {
-      for (int j = 0; j < n; ++j) {
-        const float4* q = batch + 3 * j;
-        float v[kStats] = {0.0f, 0.0f, 0.0f, 0.0f};
-        bool contrib = false;
-        if (!done) {
-          const float T_in = T;
-          float w = 0.0f;
-          const Blend b = blend(q, px, py, T, cr, cg, cb, cd, w);
-          if (b == kLatch) {
-            lat = base + j;
-            done = 1;
-          }
-          contrib = b == kContrib;
-          if (contrib) {
-            v[0] = 1.0f;
-            v[1] = q[1].y;  // opacity
-            v[2] = w;
-            v[3] = T_in;
-          }
-        }
-        // Warp-uniform branch: every lane of the warp takes the same side.
-        if (__any_sync(kFullMask, contrib)) {
-#pragma unroll
-          for (int s = 0; s < kStats; ++s) {
-            const float sum = warp_sum(v[s]);
-            if (lane == 0) partial[(j * kStats + s) * kWarps + warp] = sum;
-          }
-        } else if (lane == 0) {
-#pragma unroll
-          for (int s = 0; s < kStats; ++s) partial[(j * kStats + s) * kWarps + warp] = 0.0f;
-        }
-      }
+    walk_batch<kWithStats>(batch, n, base, box, lane, warp, p, slots);
+    if constexpr (kWithStats) {
+      // Every warp's slot of every entry of the batch is written: thread
+      // tid adds entry tid's eight, in warp order.
       __syncthreads();
-      for (int i = tid; i < n * kStats; i += kPixels) {
-        const int s = i / n;
-        const int j = i % n;
-        float sum = 0.0f;
+      if (tid < n) {
+        int count = 0;
+        float ws = 0.0f;
+        float ts = 0.0f;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) sum += partial[(j * kStats + s) * kWarps + w];
-        stats[static_cast<size_t>(s) * K + base + j] = sum;
+        for (int w = 0; w < kWarps; ++w) {
+          count += slots.count[w][tid];
+          ws += slots.w[w][tid];
+          ts += slots.t[w][tid];
+        }
+        const float cnt = static_cast<float>(count);
+        const size_t idx = base + tid;
+        stats[idx] = cnt;
+        stats[static_cast<size_t>(K) + idx] = cnt * batch[3 * tid + 1].y;  // x opacity
+        stats[2 * static_cast<size_t>(K) + idx] = ws;
+        stats[3 * static_cast<size_t>(K) + idx] = ts;
       }
     }
   }
@@ -260,9 +308,9 @@ composite_fwd_kernel(const float* __restrict__ e, int K,
     }
   }
   const int pix = tile * kPixels + box.pixel;
-  color4[pix] = make_float4(cr, cg, cb, cd);
-  final_t[pix] = T;
-  latch[pix] = lat;
+  color4[pix] = make_float4(p.cr, p.cg, p.cb, p.cd);
+  final_t[pix] = p.T;
+  latch[pix] = p.lat;
 }
 
 template <bool kWithStats>
@@ -273,17 +321,8 @@ int launch(const float* e, int K, const int* range_start, const int* range_end,
   const int err = tile_common::launch_tile_order(
       range_start, range_end, num_tiles, tile_order, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
-  const int dynamic_smem = kWithStats ? kStatsBytes : 0;
-  if (kWithStats) {
-    // The statistics' partial sums and the staging together pass the 48 KB
-    // a block gets without asking.
-    const cudaError_t err = cudaFuncSetAttribute(
-        composite_fwd_kernel<kWithStats>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic_smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   composite_fwd_kernel<kWithStats>
-      <<<num_tiles, kPixels, dynamic_smem, static_cast<cudaStream_t>(stream)>>>(
+      <<<num_tiles, kPixels, 0, static_cast<cudaStream_t>(stream)>>>(
           e, K, range_start, range_end, tile_order, tiles_x,
           reinterpret_cast<float4*>(color4), final_t, latch, stats);
   return static_cast<int>(cudaGetLastError());

@@ -17,9 +17,11 @@ and ``csrc/composite_bwd.cu`` (B3 ``composite_bwd``) it prints:
   and end, from a copy of the source that records it;
 - the time of copies of the sources changed by text substitution
   (``ABLATIONS``: shuffles removed, loads removed or doubled, FMA allowed in
-  the gate, other group sizes, tiles launched in another order), each built
-  by nvcc into a temporary directory and timed in turns with the source as
-  it is.
+  the gate, other group sizes, the statistics' slots as shared atomics,
+  tiles launched in another order), each built by nvcc into a temporary
+  directory and timed in turns with the source as it is. A copy of
+  ``composite_fwd.cu`` is timed as B1 and as B2, a ``stats_`` copy as B2
+  only.
 
 With ``--parent DIR`` the ``composite_fwd.cu`` and ``composite_bwd.cu`` in DIR
 (another commit's, say) are built and timed in the same turns, with the
@@ -138,6 +140,39 @@ ABLATIONS = {
          "float extra = 0.0f;\n  for (int f = 0; f < kFields; ++f) extra += "
          "fields[f][j & ~1];\n  const float dx = fields[0][j] - px + 0.0f * extra;"),),),
         "ten more scalar shared loads per visit"),
+    # Copies of the statistics form (B2) alone, timed as B2 only.
+    # stats_skip_latched applies to the design before the warps' cull,
+    # stats_atomics to the one after it, stats_no_shuffle to both.
+    "stats_no_shuffle": ("composite_fwd", (
+        (("__shfl_xor_sync(kFullMask, upper ? a : b, 16)", "(upper ? a : b)"),
+         ("v += __shfl_xor_sync(kFullMask, v, offset);", "v += v;")),
+        (("v += __shfl_xor_sync(kFullMask, v, offset);", "v += v;"),)),
+        "the statistics' shuffles removed"),
+    "stats_skip_latched": ("composite_fwd", (
+        (("for (int j = 0; j < n; ++j) {",
+          "for (int j = 0; j < n && !__all_sync(kFullMask, done); ++j) {"),),),
+        "a warp stops visiting the batch once all of its pixels have latched"),
+    "stats_atomics": ("composite_fwd", ((
+        ("  unsigned char count[kWarps][kPixels];\n  float w[kWarps][kPixels];\n"
+         "  float t[kWarps][kPixels];\n",
+         "  unsigned char count[1][kPixels];\n  float w[2][kPixels];\n  float t[1][kPixels];\n"),
+        ("    count[warp][j] = 0;\n    w[warp][j] = 0.0f;\n    t[warp][j] = 0.0f;\n", ""),
+        ("        if (lane == 0) {\n          slots.count[warp][j] = __popc(who);\n"
+         "          slots.w[warp][j] = sum;\n        } else if (lane == 16) {\n"
+         "          slots.t[warp][j] = sum;\n        }\n",
+         "        if (who && lane == 0) {\n"
+         "          atomicAdd(reinterpret_cast<int*>(slots.w[1]) + j, __popc(who));\n"
+         "          atomicAdd(&slots.w[0][j], sum);\n        } else if (who && lane == 16) {\n"
+         "          atomicAdd(&slots.t[0][j], sum);\n        }\n"),
+        ("for (int w = 0; w < kWarps; ++w) {", "for (int w = 0; w < 1; ++w) {"),
+        ("count += slots.count[w][tid];", "count += reinterpret_cast<int*>(slots.w[1])[tid];"),
+        ("ts += slots.t[w][tid];",
+         "ts += slots.t[w][tid];\n          slots.w[0][tid] = slots.w[1][tid] = slots.t[0][tid] = 0.0f;"),
+        ("  const int end = range_end[tile];\n",
+         "  const int end = range_end[tile];\n  if constexpr (kWithStats) {\n"
+         "    slots.w[0][tid] = slots.w[1][tid] = slots.t[0][tid] = 0.0f;\n  }\n")),),
+        "the warps' sums added into one slot per entry with shared atomics (an int count, "
+        "two floats), which the combine reads and clears"),
     # Instrumented copies (any source). The timeline copies record
     # globaltimer at each block's start and end (thread 0's, as it leaves the
     # kernel); heavy_first and index_order change the order in which blocks
@@ -327,11 +362,15 @@ def work_counts(e, rs, re, tiles_x, latch):
     tile_x = ((seg % tiles_x) * config.BLOCK_X).float()
     tile_y = ((seg // tiles_x) * config.BLOCK_Y).float()
     x, y, A, B, C, op = e[:6]
+    # The statistics form before the cull: every warp visits every entry of
+    # each batch of 256 up to the one holding the block's last latch.
+    batches = (scanned.amax(dim=1) + 255) // 256
     out = dict(tiles=int(n.numel()), empty_tiles=int((n == 0).sum()), entries=int(n.sum()),
                entries_per_tile=quantiles(n), entries_per_nonempty_tile=quantiles(n[n > 0]),
                fwd_scanned_pairs=int(scanned.sum()), bwd_pairs_before_latch=int(before.sum()),
                fwd_block_visits=int(scanned.amax(dim=1).sum()),
-               bwd_warp_visits_block_start=int(8 * before.amax(dim=1).sum()))
+               bwd_warp_visits_block_start=int(8 * before.amax(dim=1).sum()),
+               stats_warp_visits_every_entry=int(8 * torch.minimum(n, 256 * batches).sum()))
     for name, width in LAYOUTS.items():
         pixel, boxes = _layout(width)
         pixel = pixel.to(e.device)
@@ -356,7 +395,9 @@ def work_counts(e, rs, re, tiles_x, latch):
                     f"bwd_warp_visits_{name}": int(warps(before).sum()),
                     f"bwd_warp_visits_with_contributing_lane_{name}": live_visits,
                     f"fwd_warp_visits_after_cull_{name}": culled_fwd,
-                    f"bwd_warp_visits_after_cull_{name}": culled_bwd})
+                    f"bwd_warp_visits_after_cull_{name}": culled_bwd,
+                    # The statistics form walks as the forward form does.
+                    f"stats_warp_visits_after_cull_{name}": culled_fwd})
     return out, scanned.sum(dim=1), before.sum(dim=1)
 
 
@@ -480,11 +521,13 @@ def main(argv=None):
                     _build.load_library = saved
 
             if source == "composite_fwd":
-                runs[f"{label} B1"] = ("fwd", lambda call=call: call(
-                    composite.composite_fwd, (e, rs, re, tiles_x)))
-                if "+" not in label or label.endswith(_TIMED):
-                    runs[f"{label} B2"] = ("stats", lambda call=call: call(
-                        composite.composite_fwd_stats, (e, rs, re, tiles_x)))
+                # Both forms run one walk, so a copy of it is timed as both;
+                # the stats_ copies change the statistics form only.
+                if "+stats_" not in label:
+                    runs[f"{label} B1"] = ("fwd", lambda call=call: call(
+                        composite.composite_fwd, (e, rs, re, tiles_x)))
+                runs[f"{label} B2"] = ("stats", lambda call=call: call(
+                    composite.composite_fwd_stats, (e, rs, re, tiles_x)))
             else:
                 runs[f"{label} B3"] = ("bwd", lambda call=call: call(
                     composite.composite_bwd, bwd_args))

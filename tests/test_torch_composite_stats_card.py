@@ -31,11 +31,12 @@ RAGGED_H, RAGGED_W = 540, 970
 # One fault each: (text of csrc/composite_fwd.cu, its replacement).
 FAULTS = {
     # The transmittance after the entry instead of the incoming one.
-    "t_after_entry": ("v[3] = T_in;", "v[3] = T;"),
+    "t_after_entry": ("contrib ? T_in : 0.0f", "contrib ? p.T : 0.0f"),
     # The latching entry itself counts.
     "latch_inclusive": ("contrib = b == kContrib;", "contrib = b != kSkip;"),
-    # count x alpha instead of count x opacity.
-    "alpha_for_opacity": ("v[1] = q[1].y;", "v[1] = w / T_in;"),
+    # count x alpha (its T_in-weighted mean, sum w / sum T_in) instead of
+    # count x opacity.
+    "alpha_for_opacity": ("cnt * batch[3 * tid + 1].y", "(ts > 0.0f ? cnt * ws / ts : 0.0f)"),
     # Entries past the block-wide exit keep whatever the buffer held.
     "unvisited_unwritten": ("stats[static_cast<size_t>(s) * K + idx] = 0.0f;",
                             "(void)s;"),
@@ -43,6 +44,13 @@ FAULTS = {
     "out_of_image_dropped": ("contrib = b == kContrib;",
                              f"contrib = b == kContrib && px < {RAGGED_W}.0f "
                              f"&& py < {RAGGED_H}.0f;"),
+    # The combine leaves out warp 0's slots.
+    "warp_left_out": ("for (int w = 0; w < kWarps; ++w) {", "for (int w = 1; w < kWarps; ++w) {"),
+    # An entry the warp's cull drops keeps whatever its slot held.
+    "dropped_slot_unwritten": ("if (jl < n && !hit) slots.clear(warp, jl);", "(void)hit;"),
+    # The entries after a warp's stop keep whatever their slots held.
+    "stop_tail_unwritten": ("for (int j = j0 + lane; j < n; j += 32) slots.clear(warp, j);",
+                            "(void)j0;"),
 }
 
 

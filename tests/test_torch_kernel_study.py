@@ -48,7 +48,8 @@ def test_every_study_copy_of_this_tree_applies():
     exactly once (a source edit that moves the text drops the copy)."""
     labels = {label for label, _, _ in kernel_study.variants(None)}
     for source, names in (("composite_fwd", ("fwd_fma_gate", "fwd_no_cull", "fwd_rows",
-                                             "fwd_no_overlap", "fwd_occupancy8", "timeline",
+                                             "fwd_no_overlap", "fwd_occupancy8",
+                                             "stats_no_shuffle", "stats_atomics", "timeline",
                                              "index_order")),
                           ("composite_bwd", ("bwd_no_shuffle", "bwd_group2", "bwd_group3",
                                              "bwd_no_cull", "bwd_rows", "bwd_batch64",
