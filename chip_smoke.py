@@ -33,6 +33,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            prunes by importance after steps 10 and 20 and culls SH bands
            after step 15, with the launch counts, N and the degrees read
            around each event
+  phase 8  the densification path: train.training() for 30 steps with
+           SHCullingOpacityResetDensificationTrainer on the 4 views, each
+           with a ground-truth depth map: split/clone after steps 10, 20 and
+           30 (the gradient threshold calibrated by a run of the first 10
+           steps), the opacity/size prune every 5 steps from 15, the SH cull
+           after 15, the opacity reset after 30; each event's N, counts and
+           time, the launch counts, the backward compositor's depth and
+           final_T cotangents, and the step time at the grown N
 
 Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
@@ -64,6 +72,33 @@ REDUCTION_CONFIG = dict(importance_prune_from_iter=10, importance_prune_until_it
                         importance_prune_interval=10, cull_at_steps=[15],
                         sh_degree_up_interval=4)
 PRUNE_STEPS, CULL_STEPS = (10, 20), (15,)
+# The densification path of phase 8 (SHCullingOpacityResetDensificationTrainer):
+# split/clone after steps 10, 20 and 30, the opacity/size prune every 5 steps
+# from 15 (its size criteria from 15 on; 20 and 30 coincide with a split),
+# the SH cull after step 15, the opacity reset after step 30, the last: the
+# gradients of the nearly transparent Gaussians a reset leaves would keep a
+# densify a few steps later from adding points.
+DENSIFY_STEPS = 30
+DENSIFY_CONFIG = dict(densify_from_iter=10, densify_until_iter=30, densify_interval=10,
+                      prune_from_iter=15, prune_until_iter=30, prune_interval=5,
+                      prune_big_from_iter=14, opacity_reset_interval=30,
+                      opacity_reset_until_iter=30, opacity_reset_value=0.01,
+                      cull_at_steps=[15], sh_degree_up_interval=4)
+SPLIT_STEPS, DPRUNE_STEPS, RESET_STEPS, DCULL_STEPS = (10, 20, 30), (15, 20, 25, 30), (30,), (15,)
+# The views sit within 0.1 of each other, so vanilla 3DGS's size bars, which
+# are shares of the cameras' extent (clone below 1% of it, prune above 10%),
+# would call every Gaussian of the scene large. Phase 8 sets them from the
+# scene's own largest scales instead: clone at or below their median, prune
+# above their 99th percentile.
+CLONE_SCALE_QUANTILE, BIG_SCALE_QUANTILE = 0.5, 0.99
+# The perturbed scene's screen-space gradients are not a trained scene's, so
+# the split/clone gradient threshold is calibrated too: a run of the same
+# first 10 steps (same model, loss and camera order) sets it at the 90th
+# percentile of the mean gradient, so that a tenth of the Gaussians densify
+# at the first event.
+HOT_SHARE = 0.1
+# sigmoid(inverse_sigmoid(v)) may land an ulp or two above v.
+RESET_TOL_REL = 1e-6
 # Background of the camera whose loss gives the backward compositor's
 # cotangents: non-zero, so that the final_T cotangent is too.
 LOSS_BG = (0.2, 0.4, 0.6)
@@ -459,6 +494,234 @@ def write_dataset(model, src, dst, cameras, poses):
             arr = (img * 255).to(torch.uint8).cpu().numpy().transpose(1, 2, 0)
             Image.fromarray(arr).save(os.path.join(src, "images", name))
     model.save_ply(os.path.join(dst, "point_cloud", "iteration_1", "point_cloud.ply"))
+
+
+def write_depths(model, src, cameras):
+    """depths/view{i}.npy beside the dataset's images: depth / (1 - final_T)
+    of `model`'s render at each camera, 0 where final_T > 0.5."""
+    os.makedirs(os.path.join(src, "depths"))
+    for i, cam in enumerate(cameras):
+        with torch.no_grad():
+            out = model(cam)
+        t = out["final_T"]
+        depth = torch.where(t > 0.5, torch.zeros_like(t),
+                            out["depth"] / torch.clamp(1.0 - t, min=1e-6))
+        np.save(os.path.join(src, "depths", f"view{i}.npy"), depth.cpu().numpy())
+
+
+def mean_gradient(engine):
+    """[N] mean screen-space gradient over the steps that saw each Gaussian,
+    as SplitCloneDensifier computes it."""
+    denom = engine.xyz_grad_denom
+    return torch.where(denom > 0, engine.xyz_grad_accum / torch.clamp(denom, min=1), 0.0)
+
+
+def sample(x, size=100_000):
+    """At most `size` entries of x, drawn without replacement (a fixed
+    generator), for torch.quantile."""
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    return x[torch.randperm(x.numel(), device=x.device, generator=gen)[:size]]
+
+
+def densification_phase(card, model, params_p, src, cameras, wrappers, tmp, step_ms):
+    """Phase 8: train.training() with SHCullingOpacityResetDensificationTrainer
+    for DENSIFY_STEPS steps on the 4 views with ground-truth depths, checking
+    each event (N, row counts, appended rows, the reset, the cull), the
+    kernels' launch counts, and the backward compositor's depth and final_T
+    cotangents. Returns the launch counts."""
+    from reduced_3dgs_torch.combinations import SHCullingOpacityResetDensificationTrainer
+    from reduced_3dgs_torch.dataset.dataset import prepare_dataset
+    from reduced_3dgs_torch.ops.rasterize import composite
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    from reduced_3dgs_torch.train import training
+    from reduced_3dgs_torch.trainer import DepthTrainerWrapper, Trainer
+
+    dev = torch.device("cuda")
+    write_depths(model, src, cameras)
+    dataset = prepare_dataset(src)
+    if any(cam.ground_truth_depth is None for cam in dataset):
+        raise AssertionError("prepare_dataset did not load every view's depth")
+    extent = dataset.scene_extent()
+    largest = np.exp(params_p["scaling"]).max(axis=1)
+    calib_model = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
+    calib = DepthTrainerWrapper(Trainer, calib_model, dataset,
+                                sh_degree_up_interval=DENSIFY_CONFIG["sh_degree_up_interval"])
+    training(dataset, calib_model, calib, None, os.path.join(tmp, "calibration"),
+             iteration=DENSIFY_CONFIG["densify_from_iter"], save_iterations=[])
+    config = dict(DENSIFY_CONFIG,
+                  densify_grad_threshold=float(torch.quantile(
+                      sample(mean_gradient(calib.engine)), 1.0 - HOT_SHARE)),
+                  densify_percent_dense=float(np.quantile(largest, CLONE_SCALE_QUANTILE)) / extent,
+                  prune_percent_too_big=float(np.quantile(largest, BIG_SCALE_QUANTILE))
+                  / (0.1 * extent))
+    del calib, calib_model
+    dmodel = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
+    trainer = SHCullingOpacityResetDensificationTrainer(dmodel, dataset, **config)
+    densifying = trainer.base_trainer.base_trainer.base_trainer   # DensificationTrainer
+    split = densifying.densifier.base_densifier
+    k = split.densify_n_split
+    log(f"phase 8: {len(dataset)} views with depth, scene extent {extent:.6f}; split/clone "
+        f"grad threshold {split.densify_grad_threshold:.8f} (calibrated), clone at or below scale "
+        f"{split.densify_percent_dense * extent:.6f}, prune above scale "
+        f"{0.1 * config['prune_percent_too_big'] * extent:.6f}, screen radius "
+        f"{densifying.densifier.prune_screensize_threshold}, opacity "
+        f"{densifying.densifier.prune_opacity_threshold}")
+
+    # Observation only: the instructions applied, the densify decisions'
+    # gradient quantiles, and the backward compositor's cotangents.
+    instructions, grad_quantiles, cotangents = {}, {}, []
+    apply = densifying.apply_instruction
+    split_fn = split.densify_and_prune
+    backward = composite.CompositeSorted.backward
+
+    def record_apply(instruction):
+        instructions[trainer.curr_step] = (dmodel.num_points, instruction)
+        return apply(instruction)
+
+    def record_split(loss, out, camera, step):
+        if split.fires(step):
+            grad_quantiles[step] = torch.quantile(sample(mean_gradient(trainer.engine)),
+                                                  torch.tensor([0.5, 0.9, 0.99], device=dev))
+        return split_fn(loss, out, camera, step)
+
+    def record_backward(ctx, g_color4, g_t):
+        # The cotangents the backward compositor receives.
+        cotangents.append(torch.stack([g_color4[..., 3].abs().amax(), g_t.abs().amax()]))
+        return backward(ctx, g_color4, g_t)
+
+    densifying.apply_instruction = record_apply
+    split.densify_and_prune = record_split
+    composite.CompositeSorted.backward = staticmethod(record_backward)
+
+    events, step_events = [], []
+    take_step = trainer.step
+    watched = set(SPLIT_STEPS + DPRUNE_STEPS + RESET_STEPS + DCULL_STEPS)
+
+    def step_and_watch(camera):
+        fires = trainer.curr_step + 1 in watched
+        if fires:
+            n0 = dmodel.num_points
+            hist0 = torch.bincount(dmodel._degrees.long(), minlength=4).tolist()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = take_step(camera)
+        end.record()
+        step_events.append((trainer.curr_step, start, end))
+        if fires:
+            engine = trainer.engine
+            trees = engine.state_trees()
+            events.append(dict(
+                step=trainer.curr_step, n_before=n0, n_after=dmodel.num_points,
+                degrees_before=hist0,
+                degrees_after=torch.bincount(dmodel._degrees.long(), minlength=4).tolist(),
+                rows=sorted({v.shape[0] for t in trees.values() for v in t.values()}),
+                degrees=dmodel._degrees.clone(),
+                moments={g: {n: v.abs().amax(dim=tuple(range(1, v.dim()))) for n, v in
+                             trees[g].items()} for g in ("adam_m", "adam_v")},
+                stats=[v.clone() for v in trees["accum"].values()],
+                max_opacity=float(torch.sigmoid(dmodel._opacity.detach()).max()),
+                opacity_moments=float(engine.adam.m["opacity"].abs().max()
+                                      + engine.adam.v["opacity"].abs().max())))
+        return out
+
+    trainer.step = step_and_watch
+    out_dir = os.path.join(tmp, "densify")
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        losses = training(dataset, dmodel, trainer, None, out_dir, iteration=DENSIFY_STEPS,
+                          save_iterations=[])
+        torch.cuda.synchronize()
+    finally:
+        composite.CompositeSorted.backward = staticmethod(backward)
+        trainer.step, split.densify_and_prune = take_step, split_fn
+        densifying.apply_instruction = apply
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    values = torch.stack(losses).cpu().tolist()
+    step_times = {s: a.elapsed_time(b) for s, a, b in step_events}
+    for s, q in sorted(grad_quantiles.items()):
+        log(f"phase 8: before the densify after step {s}: mean screen-space gradient "
+            f"quantiles 0.5/0.9/0.99 of a 100k sample {[round(v, 8) for v in q.tolist()]}")
+
+    # Each event: its counts and its checks.
+    failures = []
+    for ev in events:
+        s = ev["step"]
+        n_pre, ins = instructions.get(s, (ev["n_before"], None))
+        clones = splits = prunes = 0
+        if ins is not None and ins.appends:
+            clone_sel, split_sel = ins.appends[0].select, ins.appends[1].select
+            clones, splits = int(clone_sel.sum()), int(split_sel.sum())
+            if ins.remove_mask is not None:
+                prunes = int((ins.remove_mask & ~split_sel).sum())
+        elif ins is not None and ins.remove_mask is not None:
+            prunes = int(ins.remove_mask.sum())
+        added = clones + k * splits
+        log(f"phase 8: after step {s} ({step_times[s]:.4f} ms): N {ev['n_before']} -> "
+            f"{ev['n_after']}; clones {clones}, splits {splits} (x{k}), prunes {prunes}; "
+            f"degrees 0-3 {ev['degrees_before']} -> {ev['degrees_after']}; rows of every "
+            f"per-Gaussian tensor {ev['rows']}; max sigmoid(opacity) {ev['max_opacity']:.8f}")
+        if ev["rows"] != [ev["n_after"]]:
+            failures.append(f"step {s}: per-Gaussian tensors have rows {ev['rows']}")
+        if s in SPLIT_STEPS + DPRUNE_STEPS:
+            if ev["n_after"] != ev["n_before"] + clones + (k - 1) * splits - prunes:
+                failures.append(f"step {s}: N {ev['n_after']} is not N + clones + "
+                                f"(k-1) splits - prunes")
+        if s in SPLIT_STEPS:
+            new = slice(ev["n_after"] - added, ev["n_after"])
+            fresh = (bool((ev["degrees"][new] == 3).all())
+                     and all(not bool(v[new].any()) for g in ev["moments"].values()
+                             for v in g.values())
+                     and all(not bool(v.any()) for v in ev["stats"]))
+            if not (ev["n_after"] > ev["n_before"] and clones > 0 and splits > 0):
+                failures.append(f"step {s}: the densify did not clone, split and raise N")
+            if not fresh:
+                failures.append(f"step {s}: appended rows are not at degree 3 with zero "
+                                "moments and statistics")
+        if s == DPRUNE_STEPS[0] and prunes == 0:
+            failures.append(f"step {s}: the first prune removed nothing")
+        if s in RESET_STEPS and not (ev["max_opacity"] <= DENSIFY_CONFIG["opacity_reset_value"]
+                                     * (1 + RESET_TOL_REL) and ev["opacity_moments"] == 0):
+            failures.append(f"step {s}: the opacity reset left opacity {ev['max_opacity']} "
+                            f"or moments {ev['opacity_moments']}")
+        if s in DCULL_STEPS and not sum(ev["degrees_after"][:3]) > sum(ev["degrees_before"][:3]):
+            failures.append(f"step {s}: the cull lowered no degree")
+    ordinary = statistics.median(t for s, t in step_times.items() if s not in watched)
+    cot = torch.stack(cotangents).cpu()
+    log(f"phase 8 [{card}]: training() {DENSIFY_STEPS} steps in {wall:.2f} s; N "
+        f"{N_GAUSSIANS} -> {dmodel.num_points}; median ordinary step {ordinary:.4f} ms; event "
+        "steps " + ", ".join(f"{s} {step_times[s]:.4f} ms ({step_times[s] / ordinary:.2f}x)"
+                             for s in sorted(watched))
+        + f"; losses {values}; launches {launches}; backward compositor cotangents, min over "
+        f"the steps of max|g depth| {float(cot[:, 0].min()):.3e} and of max|g final_T| "
+        f"{float(cot[:, 1].min()):.3e}")
+    expected = {"composite_fwd": DENSIFY_STEPS, "composite_bwd": DENSIFY_STEPS,
+                "composite_fwd_stats": 2 * len(dataset) * len(DCULL_STEPS)}
+    if launches != expected:
+        failures.append(f"densification path launched {launches}, expected {expected}")
+    if [ev["step"] for ev in events] != sorted(watched):
+        failures.append(f"events watched after steps {[ev['step'] for ev in events]}")
+    if len(cot) != DENSIFY_STEPS or not bool((cot > 0).all()):
+        failures.append("the backward compositor saw a zero depth or final_T cotangent: "
+                        f"{cot.tolist()}")
+    if len(values) != DENSIFY_STEPS or not all(map(math.isfinite, values)):
+        failures.append(f"densification losses are not all finite: {values}")
+    saved = VariableSHGaussianModel(3, device=dev).load_ply(
+        os.path.join(out_dir, "point_cloud", f"iteration_{DENSIFY_STEPS}", "point_cloud.ply"))
+    log(f"phase 8: saved PLY holds {saved.num_points} points (model {dmodel.num_points})")
+    if saved.num_points != dmodel.num_points:
+        failures.append("the saved PLY does not hold the densified model")
+    if failures:
+        raise AssertionError("phase 8: " + "; ".join(failures))
+
+    # The step at the grown N, against phase 5's step at the bench scene.
+    cam = dataset[0]
+    grown_ms = cuda_ms(lambda: trainer.step(cam))
+    log(f"phase 8 [{card}]: training step at N={dmodel.num_points} with the depth term "
+        f"{grown_ms:.4f} ms against {step_ms:.4f} ms at N={N_GAUSSIANS} (phase 5, Trainer.step)")
+    return launches
 
 
 def card_name():
@@ -906,6 +1169,12 @@ def run(tmp):
         f"{red_model.num_points}, from {N_GAUSSIANS})")
     if red_saved.num_points != red_model.num_points or not red_model.num_points < N_GAUSSIANS:
         raise AssertionError("the reduced PLY does not hold the pruned model")
+    del red_trainer, red_model, red_saved
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 8
+    dense_launches = densification_phase(card, model, params_p, src, cameras, wrappers, tmp,
+                                         step_ms)
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
@@ -913,7 +1182,7 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_fwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:300",
-        "launches": red_launches["composite_fwd"],
+        "launches": dense_launches["composite_fwd"],
         "max_abs_err": bench["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -925,7 +1194,7 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_fwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:300",
-        "launches": red_launches["composite_fwd_stats"],
+        "launches": dense_launches["composite_fwd_stats"],
         "max_abs_err": stats_max_abs_err,
         "ms": stats_ms,
         "plain_ms": stats_plain_ms,
@@ -937,7 +1206,7 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_bwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:502",
-        "launches": red_launches["composite_bwd"],
+        "launches": dense_launches["composite_bwd"],
         "max_abs_err": bwd_max_abs_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

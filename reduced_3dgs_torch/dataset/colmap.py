@@ -42,50 +42,60 @@ def qvec2rotmat(qvec: np.ndarray) -> np.ndarray:
         [2 * x * z - 2 * y * w, 2 * y * z + 2 * x * w, 1 - 2 * x * x - 2 * y * y]])
 
 
+def _read(f, n: int) -> bytes:
+    """The next n bytes of ``f``; EOFError where the file ends first."""
+    b = f.read(n)
+    if len(b) != n:
+        raise EOFError(f"{f.name} ends {n - len(b)} bytes early")
+    return b
+
+
 def read_cameras_binary(path: str) -> Dict[int, ColmapCamera]:
     cams = {}
     with open(path, "rb") as f:
-        num = struct.unpack("<Q", f.read(8))[0]
+        num = struct.unpack("<Q", _read(f, 8))[0]
         for _ in range(num):
-            cid, model_id, w, h = struct.unpack("<iiQQ", f.read(24))
+            cid, model_id, w, h = struct.unpack("<iiQQ", _read(f, 24))
             name, n_params = CAMERA_MODELS[model_id]
-            params = np.array(struct.unpack("<" + "d" * n_params, f.read(8 * n_params)))
+            params = np.array(struct.unpack("<" + "d" * n_params, _read(f, 8 * n_params)))
             cams[cid] = ColmapCamera(cid, name, int(w), int(h), params)
     return cams
 
 
 def read_images_binary(path: str) -> Dict[int, ColmapImage]:
+    """images.bin; EOFError where the file ends early, inside an image name
+    too (where the JAX package's reader loops forever)."""
     images = {}
     with open(path, "rb") as f:
-        num = struct.unpack("<Q", f.read(8))[0]
+        num = struct.unpack("<Q", _read(f, 8))[0]
         for _ in range(num):
-            iid = struct.unpack("<i", f.read(4))[0]
-            qvec = np.array(struct.unpack("<dddd", f.read(32)))
-            tvec = np.array(struct.unpack("<ddd", f.read(24)))
-            cam_id = struct.unpack("<i", f.read(4))[0]
+            iid = struct.unpack("<i", _read(f, 4))[0]
+            qvec = np.array(struct.unpack("<dddd", _read(f, 32)))
+            tvec = np.array(struct.unpack("<ddd", _read(f, 24)))
+            cam_id = struct.unpack("<i", _read(f, 4))[0]
             name = b""
             while True:
-                c = f.read(1)
-                if c in (b"\x00", b""):
+                c = _read(f, 1)
+                if c == b"\x00":
                     break
                 name += c
-            n_pts = struct.unpack("<Q", f.read(8))[0]
-            f.read(24 * n_pts)  # skip the 2D points
+            n_pts = struct.unpack("<Q", _read(f, 8))[0]
+            _read(f, 24 * n_pts)  # skip the 2D points
             images[iid] = ColmapImage(iid, qvec, tvec, cam_id, name.decode("utf-8"))
     return images
 
 
 def read_points3d_binary(path: str) -> Tuple[np.ndarray, np.ndarray]:
     with open(path, "rb") as f:
-        num = struct.unpack("<Q", f.read(8))[0]
+        num = struct.unpack("<Q", _read(f, 8))[0]
         xyz = np.empty((num, 3), np.float64)
         rgb = np.empty((num, 3), np.uint8)
         for i in range(num):
-            data = struct.unpack("<QdddBBBd", f.read(43))
+            data = struct.unpack("<QdddBBBd", _read(f, 43))
             xyz[i] = data[1:4]
             rgb[i] = data[4:7]
-            track_len = struct.unpack("<Q", f.read(8))[0]
-            f.read(8 * track_len)
+            track_len = struct.unpack("<Q", _read(f, 8))[0]
+            _read(f, 8 * track_len)
     return xyz, rgb
 
 

@@ -97,6 +97,11 @@ class GaussianModel(nn.Module):
         del aux
         return self
 
+    def aux_for_new_points(self, m: int) -> Dict[str, torch.Tensor]:
+        """``aux_state`` rows for m points that densification adds; none."""
+        del m
+        return {}
+
     # --- parameters from outside --------------------------------------------
     def load_numpy(self, params: Dict[str, np.ndarray], degrees=None):
         """Set the parameters from the JAX package's parameter dict (the six

@@ -5,7 +5,8 @@ The int buffer ``_degrees`` [N] selects how many SH bands each Gaussian
 uses; ``masked_features`` multiplies the rest coefficients beyond it by
 zero, so they neither colour the render nor receive gradient (exactly zero:
 the product's gradient is the mask times the cotangent). ``aux_state`` and
-``aux_set`` carry it through the trainer's row removal, and SH culling sets
+``aux_set`` carry it through the trainer's row removal and appending (new
+rows take ``aux_for_new_points``: the maximum degree), and SH culling sets
 it with ``aux_set``.
 """
 from __future__ import annotations
@@ -40,6 +41,11 @@ class VariableSHGaussianModel(GaussianModel):
     def aux_set(self, aux):
         self._degrees = aux["degrees"]
         return self
+
+    def aux_for_new_points(self, m: int):
+        """Points that densification adds start at the maximum degree."""
+        return {"degrees": torch.full((m,), self.max_sh_degree, dtype=torch.int32,
+                                      device=self.device)}
 
     def init_degrees(self):
         """Every Gaussian at the maximum degree."""

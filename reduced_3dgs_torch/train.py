@@ -6,15 +6,20 @@ epoch, and saves the model's PLY and the dataset's cameras.json at the
 ``log_interval`` steps, where it prints the progress and aborts on a
 non-finite loss.
 
-Until the mode registry's trainers are ported, the entry point is a
-``Trainer`` (or ``BaseTrainer``) driven by ``training``::
+Until the mode registry is ported, the entry point is a trainer driven by
+``training``. The fullest ported composition is the ``densify-shculling``
+mode's, which densifies (split, clone, opacity prune, opacity reset, depth
+supervision) and culls SH bands::
 
     dataset = prepare_dataset(source, device="cuda")
     model = VariableSHGaussianModel(3, device="cuda").load_ply(ply_path)
-    training(dataset, model, Trainer(model, dataset), None, out_dir,
+    trainer = SHCullingOpacityResetDensificationTrainer(model, dataset)
+    training(dataset, model, trainer, None, out_dir,
              iteration=30000, save_iterations=[7000, 30000])
 
-``main`` and its ``--mode`` registry are not ported yet.
+(``combinations.SHCullingOpacityResetDensificationTrainer``; a plain
+``trainer.Trainer(model, dataset)`` trains without events.) ``main`` and its
+``--mode`` registry are not ported yet.
 """
 from __future__ import annotations
 

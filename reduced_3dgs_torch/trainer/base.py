@@ -166,9 +166,12 @@ class BaseTrainer(AbstractTrainer):
     def update(self, outer: AbstractTrainer, camera):
         """One step with the outermost composed loss: (loss, out), both
         detached, which the engine also keeps as ``_last_step_io_engine``
-        with the camera."""
+        with the camera. The loss's ``extras`` are ``loss_scalars()`` and
+        ``step``, Adam's count before this step's update (as the JAX engine
+        passes its pre-increment count)."""
         self.maybe_advance_schedules()
-        loss, out, offset = self.forward_loss(outer.loss_pure(), camera, outer.loss_scalars())
+        extras = dict(outer.loss_scalars(), step=self.adam.count)
+        loss, out, offset = self.forward_loss(outer.loss_pure(), camera, extras)
         loss.backward()
         self.optimizer_step(out, offset)
         self._curr_step += 1

@@ -3,16 +3,17 @@ reduced_3dgs_tpu/trainer/densifier/abc.py:23-313).
 
 A chain of ``DensifierWrapper``s ends in a ``NoopDensifier``. After every
 step, ``DensificationTrainer`` asks the chain for a
-``DensificationInstruction`` (wrappers extend it through super() and OR
-their removal masks with ``merge_remove``) and applies it to the engine's
-state: every per-Gaussian tensor (parameters, Adam moments, the model's
-degrees, the densification statistics) loses the removed rows together.
+``DensificationInstruction`` (wrappers extend it through super(): they OR
+their removal masks in with ``merge_remove`` and add rows with
+``add_append``) and applies it to the engine's state in one event: every
+per-Gaussian tensor (parameters, Adam moments, the model's degrees, the
+densification statistics) loses the removed rows and gains the new ones
+together. New rows get zero Adam moments and statistics and the model's
+``aux_for_new_points``.
 
-Only removal is ported. An instruction that adds points (``new_points`` or
-``appends``: split and clone) raises NotImplementedError until the
-densification slice ports it. The JAX package's capacity-static device fast
-path (``_apply_instruction_device``) and ``fires_at`` exist for XLA's static
-shapes and fused step windows, and are not ported.
+Not ported: the JAX package's capacity, its capacity-static device fast
+path (``_apply_instruction_device``) with its overflow fallback, and
+``fires_at``; they exist for XLA's static shapes and fused step windows.
 """
 from __future__ import annotations
 
@@ -23,13 +24,22 @@ import torch
 
 from ..abc import AbstractTrainer, TrainerWrapper
 from ..base import Trainer
-from ..functional import keep_rows
+from ..functional import append_rows, keep_rows
+
+
+class AppendSpec(NamedTuple):
+    """For every source row where ``select`` [N] bool is True, append
+    ``copies`` rows taken from ``values`` (parameter name -> [N, copies, ...];
+    rows where ``select`` is False are ignored)."""
+    select: torch.Tensor
+    values: Dict[str, torch.Tensor]
+    copies: int
 
 
 class DensificationInstruction(NamedTuple):
     new_points: Optional[Dict[str, Any]] = None   # param-name -> [M, ...]
     remove_mask: Optional[torch.Tensor] = None    # [N] bool
-    appends: tuple = ()
+    appends: tuple = ()                           # AppendSpecs
 
     def merge_remove(self, mask: Optional[torch.Tensor]) -> "DensificationInstruction":
         """This instruction with ``mask`` ORed into its removal mask."""
@@ -38,6 +48,9 @@ class DensificationInstruction(NamedTuple):
         if self.remove_mask is None:
             return self._replace(remove_mask=mask)
         return self._replace(remove_mask=self.remove_mask | mask)
+
+    def add_append(self, spec: AppendSpec) -> "DensificationInstruction":
+        return self._replace(appends=self.appends + (spec,))
 
 
 class AbstractDensifier(abc.ABC):
@@ -83,6 +96,23 @@ def _inject_trainer(densifier: AbstractDensifier, trainer: AbstractTrainer):
         d = getattr(d, "base_densifier", None)
 
 
+def appended_points(instruction: DensificationInstruction,
+                    device) -> Optional[Dict[str, torch.Tensor]]:
+    """The rows ``instruction`` adds, by parameter name, [M, ...] on
+    ``device``: its ``new_points``, then each AppendSpec's selected rows in
+    source order, ``copies`` in a row (the JAX package's order:
+    ``scatter_append`` lands them at n + copies * rank + j). None when it
+    adds none."""
+    parts = [] if instruction.new_points is None else [instruction.new_points]
+    for sp in instruction.appends:
+        parts.append({k: v[sp.select].reshape((-1,) + tuple(v.shape[2:]))
+                      for k, v in sp.values.items()})
+    if not parts:
+        return None
+    return {k: torch.cat([torch.as_tensor(p[k], device=device) for p in parts], dim=0)
+            for k in parts[-1]}
+
+
 class DensificationTrainer(TrainerWrapper):
     """Runs the densifier chain after every step on the engine's last step
     (loss, output, camera) and applies the instruction it returns."""
@@ -103,15 +133,19 @@ class DensificationTrainer(TrainerWrapper):
         return ret
 
     def apply_instruction(self, instruction: DensificationInstruction):
-        if instruction.new_points is not None or instruction.appends:
-            raise NotImplementedError(
-                "adding points (split, clone) comes with the densification slice of the "
-                "port; only removal is ported")
-        if instruction.remove_mask is None:
-            return
+        """Remove the rows of ``remove_mask`` (over the rows that existed
+        before the event) and append the instruction's new rows after the
+        kept ones, in one event. Rows appended are never removed in it."""
         engine = self.engine
-        keep = ~instruction.remove_mask.to(torch.bool)
-        engine.set_state_trees(keep_rows(engine.state_trees(), keep))
+        keep = None if instruction.remove_mask is None else ~instruction.remove_mask.to(torch.bool)
+        new = appended_points(instruction, self.model._xyz.device)
+        if new is None:
+            if keep is not None:
+                engine.set_state_trees(keep_rows(engine.state_trees(), keep))
+            return
+        m = next(iter(new.values())).shape[0]
+        engine.set_state_trees(append_rows(engine.state_trees(), keep, new,
+                                           self.model.aux_for_new_points(m)))
 
     @classmethod
     def from_densifier_constructor(cls, densifier_constructor, model, dataset,

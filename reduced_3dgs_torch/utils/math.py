@@ -4,11 +4,20 @@ from __future__ import annotations
 import torch
 
 
-def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Mean |a - b|. Written as a select so that the subgradient at a == b is
-    +1 for ``a``, as JAX's ``abs`` gives it (``torch.abs`` gives 0)."""
+def abs_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b|, written as a select so that the subgradient at a == b is +1
+    for ``a``, as JAX's ``abs`` gives it (``torch.abs`` gives 0)."""
     d = a - b
-    return torch.mean(torch.where(d >= 0, d, -d))
+    return torch.where(d >= 0, d, -d)
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mean |a - b| (``abs_diff``)."""
+    return torch.mean(abs_diff(a, b))
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1.0 - x))
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -107,21 +107,27 @@ def views_np(n_views, height, width):
             for i in range(n_views)]
 
 
-def jax_dataset(cams, images=None):
+def jax_dataset(cams, images=None, depths=None):
+    """``depths``, when given, holds a [H,W] ground-truth depth or None per
+    camera."""
+    import jax.numpy as jnp
     from reduced_3dgs_tpu.dataset import CameraDataset, build_camera
     return CameraDataset([
         build_camera(image_height=c["height"], image_width=c["width"], FoVx=c["fovx"],
                      FoVy=c["fovy"], R=c["R"], T=c["T"],
-                     **({} if images is None else {"ground_truth_image": images[i]}))
+                     **({} if images is None else {"ground_truth_image": images[i]}),
+                     **({} if depths is None or depths[i] is None
+                        else {"ground_truth_depth": jnp.asarray(depths[i])}))
         for i, c in enumerate(cams)])
 
 
-def torch_dataset(cams, images=None):
+def torch_dataset(cams, images=None, depths=None):
     from reduced_3dgs_torch.dataset.camera import build_camera
     from reduced_3dgs_torch.dataset.dataset import CameraDataset
     return CameraDataset([
         build_camera(c["height"], c["width"], c["fovx"], c["fovy"], R=c["R"], T=c["T"],
-                     ground_truth_image=None if images is None else images[i], device="cpu")
+                     ground_truth_image=None if images is None else images[i],
+                     ground_truth_depth=None if depths is None else depths[i], device="cpu")
         for i, c in enumerate(cams)])
 
 

@@ -4,6 +4,7 @@ import json
 import math
 import os
 import shutil
+import struct
 
 import pytest
 
@@ -149,3 +150,36 @@ def test_cameras_json_from_jax_loads_in_port(tmp_path):
         for k in ("world_view_transform", "full_proj_transform", "camera_center"):
             np.testing.assert_allclose(getattr(t, k).numpy(), np.asarray(getattr(j, k)),
                                        atol=1e-5, err_msg=k)
+
+
+def _images_bin(path, names):
+    """A COLMAP images.bin of ``names``, each with one 2D point."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(names)))
+        for i, name in enumerate(names):
+            f.write(struct.pack("<i", i + 1))
+            f.write(struct.pack("<dddd", 1.0, 0.0, 0.0, 0.0))
+            f.write(struct.pack("<ddd", 0.1 * i, 0.0, 0.0))
+            f.write(struct.pack("<i", 1))
+            f.write(name.encode() + b"\x00")
+            f.write(struct.pack("<Q", 1))
+            f.write(struct.pack("<ddq", 1.0, 2.0, -1))
+        return f.tell()
+
+
+# Bytes cut from the end of a two-image file: inside the second image's
+# point, its point count, its name, its pose.
+@pytest.mark.parametrize("cut", [5, 24 + 3, 24 + 8 + 4, 24 + 8 + len("view1.png") + 4 + 20])
+def test_colmap_images_binary_truncated_raises(tmp_path, cut):
+    """The port's images.bin reader raises EOFError on a truncated file; it
+    must not loop at an image name that the end of the file cuts off (the
+    JAX reader's ``f.read(1)`` returns b"" there forever)."""
+    from reduced_3dgs_torch.dataset.colmap import read_images_binary
+    path = str(tmp_path / "images.bin")
+    size = _images_bin(path, ["view0.png", "view1.png"])
+    whole = read_images_binary(path)
+    assert [im.name for im in whole.values()] == ["view0.png", "view1.png"]
+    with open(path, "r+b") as f:
+        f.truncate(size - cut)
+    with pytest.raises(EOFError, match="bytes early"):
+        read_images_binary(path)
