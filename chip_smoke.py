@@ -41,6 +41,21 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            after 15, the opacity reset after 30; each event's N, counts and
            time, the launch counts, the backward compositor's depth and
            final_T cotangents, and the step time at the grown N
+  phase 9  the flagship: (a) knn(k=30) on the bench scene's 200,000 centres
+           and on a 262,144-point clustered cloud, timed, with recall@30
+           against an exact oracle on 2,048 queries, and mean_knn_dist_sq
+           against the exact two nearest neighbours; (b) colmap_init from a
+           binary COLMAP dataset holding the bench scene's centres and
+           colours; (c) one mercy event at the bench scene over the 4 views,
+           timed by stage and under torch.profiler, and its mask on a
+           20,000-Gaussian subset against the same event on the CPU; (d)
+           train.training() for 30 steps with
+           SHCullingOpacityResetFullReducedDensificationTrainer on phase 8's
+           views, start and calibration: split/clone after 10, 20 and 30, the
+           opacity and mercy prune every 5 steps from 15, the importance prune
+           after 20, the SH cull after 15, the opacity reset after 30; each
+           event's N bookkeeping and time, and the launch counts, which the
+           kernels line reports
 
 Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
@@ -97,6 +112,34 @@ CLONE_SCALE_QUANTILE, BIG_SCALE_QUANTILE = 0.5, 0.99
 # percentile of the mean gradient, so that a tenth of the Gaussians densify
 # at the first event.
 HOT_SHARE = 0.1
+# Phase 9: KNN at k = 30 (mercy pruning's), recall against an exact oracle
+# on 2,048 queries (tools/knn_recall.py's protocol), 5 timed runs.
+KNN_K = 30
+CLUSTER_POINTS = 262_144
+RECALL_QUERIES = 2048
+MIN_RECALL = 0.95
+PHASE9_REPEATS = 5
+# The mercy event's CPU comparison: the 20,000 Gaussians of smallest x, a
+# slab of the scene at its full density, at the default box size and at a
+# box size where the redundant set is not empty.
+MERCY_SUBSET = 20_000
+MERCY_BOXES = (1.0, 4.0)
+# A decision within this share of its threshold is reported.
+DECISION_MARGIN = 1e-5
+# The flagship path of phase 9 (SHCullingOpacityResetFullReducedDensification-
+# Trainer): phase 8's schedule, the mercy prune with the opacity prune, the
+# importance prune after step 20 (ImportancePruner's defaults otherwise).
+FLAGSHIP_STEPS = 30
+FLAGSHIP_CONFIG = dict(densify_from_iter=10, densify_until_iter=30, densify_interval=10,
+                       prune_from_iter=15, prune_until_iter=30, prune_interval=5,
+                       importance_prune_from_iter=20, importance_prune_until_iter=20,
+                       importance_prune_interval=20, opacity_reset_interval=30,
+                       opacity_reset_until_iter=30, opacity_reset_value=0.01,
+                       cull_at_steps=[15], sh_degree_up_interval=4)
+F_SPLIT, F_PRUNE, F_IMPORTANCE, F_CULL, F_RESET = (10, 20, 30), (15, 20, 25, 30), (20,), (15,), (30,)
+# Box sizes tried on the first mercy event's model when the default removes
+# nothing.
+MERCY_FIRE_BOXES = (2.0, 4.0, 8.0, 16.0)
 # sigmoid(inverse_sigmoid(v)) may land an ulp or two above v.
 RESET_TOL_REL = 1e-6
 # Background of the camera whose loss gives the backward compositor's
@@ -196,16 +239,16 @@ def view_camera(pose, dev, bg_color=(0.0, 0.0, 0.0)):
                         R=qvec2rotmat(q).T, T=t, bg_color=bg_color, device=dev)
 
 
-def cuda_ms(fn, warmup=3, setup=None):
-    """Median milliseconds of fn() over REPEATS runs, each between two CUDA
-    events, after `warmup` runs; setup(), when given, runs before each run,
-    outside the events."""
+def cuda_ms(fn, warmup=3, setup=None, repeats=None):
+    """Median milliseconds of fn() over `repeats` (REPEATS) runs, each
+    between two CUDA events, after `warmup` runs; setup(), when given, runs
+    before each run, outside the events."""
     for _ in range(warmup):
         if setup:
             setup()
         fn()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats or REPEATS):
         if setup:
             setup()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -721,6 +764,416 @@ def densification_phase(card, model, params_p, src, cameras, wrappers, tmp, step
     grown_ms = cuda_ms(lambda: trainer.step(cam))
     log(f"phase 8 [{card}]: training step at N={dmodel.num_points} with the depth term "
         f"{grown_ms:.4f} ms against {step_ms:.4f} ms at N={N_GAUSSIANS} (phase 5, Trainer.step)")
+    return launches, config
+
+
+def clustered_cloud(n, seed=0):
+    """A copy of tools/knn_recall.py's cloud: ~200 anisotropic Gaussian
+    clusters (85% of the points) and a uniform background over a 10x larger
+    extent, about 1000x density contrast, shuffled."""
+    rng = np.random.default_rng(seed)
+    n_bg = n // 7
+    n_cl = n - n_bg
+    n_clusters = 200
+    centers = rng.uniform(-10, 10, (n_clusters, 3))
+    sizes = rng.dirichlet(np.full(n_clusters, 0.5)) * n_cl
+    sizes = np.maximum(sizes.astype(np.int64), 1)
+    sizes[0] += n_cl - sizes.sum()
+    pts = []
+    for c, s in zip(centers, sizes):
+        scale = 10 ** rng.uniform(-2.5, -0.5, 3)
+        pts.append(c + rng.normal(0, 1, (s, 3)) * scale)
+    pts.append(rng.uniform(-100, 100, (n_bg, 3)))
+    cloud = np.concatenate(pts).astype(np.float32)
+    return rng.permutation(cloud)
+
+
+def pair_sq_dist(a, b):
+    """[A, B] squared distances of a [A,3] and b [B,3], summed x, y, z."""
+    d = a[:, None, 0] - b[None, :, 0]
+    acc = d * d
+    d = a[:, None, 1] - b[None, :, 1]
+    acc += d * d
+    d = a[:, None, 2] - b[None, :, 2]
+    return acc + d * d
+
+
+def exact_knn(points, rows, k, chunk=512):
+    """(squared distances, ids) [len(rows), k] of the exact k nearest
+    neighbours of points[rows], themselves excluded: plain torch, row chunks
+    against the whole cloud."""
+    ds, ids = [], []
+    for r0 in range(0, rows.numel(), chunk):
+        r = rows[r0:r0 + chunk]
+        d = pair_sq_dist(points[r], points)
+        d[torch.arange(r.numel(), device=points.device), r] = float("inf")
+        v, i = torch.topk(d, k, dim=1, largest=False)
+        ds.append(v)
+        ids.append(i)
+    return torch.cat(ds), torch.cat(ids)
+
+
+def recall_at_k(ids, oracle_ids):
+    """Share of the oracle's neighbours that `ids` (same rows) holds."""
+    hits = sum(len(set(a) & set(b)) for a, b in zip(ids.tolist(), oracle_ids.tolist()))
+    return hits / oracle_ids.numel()
+
+
+def knn_phase(card, params):
+    """Phase 9 (a): knn(k=30) on the bench scene's centres and on the
+    clustered cloud, timed, with recall@30 on RECALL_QUERIES queries, and
+    mean_knn_dist_sq against the exact two nearest neighbours."""
+    from reduced_3dgs_torch.ops.knn import knn, mean_knn_dist_sq
+    dev = torch.device("cuda")
+    recalls = {}
+    for name, pts in (("bench centres", params["xyz"]),
+                      ("clustered cloud", clustered_cloud(CLUSTER_POINTS, 0))):
+        p = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
+        n = p.shape[0]
+        ms = cuda_ms(lambda: knn(p, KNN_K), warmup=1, repeats=PHASE9_REPEATS)
+        d, ids = knn(p, KNN_K)
+        rows = torch.from_numpy(np.sort(np.random.default_rng(1).choice(
+            n, RECALL_QUERIES, replace=False))).to(dev)
+        _, oracle = exact_knn(p, rows, KNN_K)
+        recalls[name] = recall_at_k(ids[rows], oracle)
+        log(f"phase 9 [{card}]: knn(k={KNN_K}) on the {name}, N={n}: {ms:.4f} ms (median of "
+            f"{PHASE9_REPEATS} after a warm-up); recall@{KNN_K} against the exact oracle on "
+            f"{RECALL_QUERIES} queries {recalls[name]:.6f} (bar {MIN_RECALL}); empty slots "
+            f"{int((ids < 0).sum())}, finite distances {bool(torch.isfinite(d).all())}")
+        del p, d, ids
+    p = torch.from_numpy(params["xyz"]).to(dev)
+    ms = cuda_ms(lambda: mean_knn_dist_sq(p), warmup=1, repeats=PHASE9_REPEATS)
+    approx = mean_knn_dist_sq(p)
+    exact_d, _ = exact_knn(p, torch.arange(p.shape[0], device=dev), 2)
+    exact = (exact_d[:, 0] + exact_d[:, 1]) / 3.0
+    rel = (approx - exact) / exact
+    log(f"phase 9 [{card}]: mean_knn_dist_sq on the bench centres {ms:.4f} ms; against the "
+        f"exact two nearest neighbours: relative error max {float(rel.max()):.6e}, median "
+        f"{float(rel.median()):.6e}, rows off by more than 1e-6 {int((rel.abs() > 1e-6).sum())} "
+        f"of {p.shape[0]}")
+    if not bool(torch.isfinite(approx).all()) or float(rel.min()) < -1e-5:
+        raise AssertionError("mean_knn_dist_sq is not finite or lies below the exact value")
+    low = {k: v for k, v in recalls.items() if not v >= MIN_RECALL}
+    if low:
+        raise AssertionError(f"knn recall@{KNN_K} below {MIN_RECALL}: {low}")
+
+
+def write_colmap_binary(root, xyz, rgb, poses):
+    """A binary COLMAP model under root/sparse/0: one PINHOLE camera of the
+    bench views, the views at `poses`, and the points with their colours."""
+    import struct
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<QiiQQ", 1, 1, 1, WIDTH, HEIGHT))
+        f.write(struct.pack("<dddd", FOCAL_X, FOCAL_Y, WIDTH / 2, HEIGHT / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(poses)))
+        for i, (q, t) in enumerate(poses):
+            f.write(struct.pack("<i4d3di", i + 1, *q.tolist(), *t.tolist(), 1)
+                    + f"view{i}.png".encode() + b"\0" + struct.pack("<Q", 0))
+    record = np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("error", "<f8"),
+                       ("track", "<u8")])
+    points = np.zeros(len(xyz), record)
+    points["id"] = np.arange(1, len(xyz) + 1)
+    points["xyz"], points["rgb"] = xyz, rgb
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        f.write(points.tobytes())
+
+
+def colmap_init_phase(card, params, tmp):
+    """Phase 9 (b): colmap_init from a binary COLMAP dataset holding the
+    bench scene's centres and DC colours."""
+    from reduced_3dgs_torch.dataset import colmap_init
+    from reduced_3dgs_torch.ops.sh import SH_C0
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    src = os.path.join(tmp, "colmap_binary")
+    rgb = np.clip((params["features_dc"][:, 0] * SH_C0 + 0.5) * 255.0, 0, 255).astype(np.uint8)
+    write_colmap_binary(src, params["xyz"], rgb, view_poses())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = colmap_init(VariableSHGaussianModel(3, device=torch.device("cuda")), src)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    scales = model._scaling.detach()
+    finite = all(bool(torch.isfinite(v).all()) for v in model.param_dict().values())
+    log(f"phase 9 [{card}]: colmap_init of {model.num_points} points from points3D.bin in "
+        f"{seconds:.3f} s; scene extent {model.spatial_lr_scale:.6f}; log scale min "
+        f"{float(scales.min()):.4f}, median {float(scales.median()):.4f}, max "
+        f"{float(scales.max()):.4f}; every parameter finite {finite}")
+    if model.num_points != N_GAUSSIANS or not finite:
+        raise AssertionError("colmap_init did not give the dataset's points with finite "
+                             "parameters")
+    if not torch.equal(model._xyz.detach().cpu(), torch.from_numpy(params["xyz"])):
+        raise AssertionError("colmap_init moved the centres")
+
+
+def mercy_decisions(model, views, box_size):
+    """Float64 inputs of the mercy event's decisions, from the port's own
+    pixel sizes and neighbours: (quadratic forms [N,30], counts, threshold,
+    opacity, median) of the default type, lambda 1, minimum 3."""
+    from reduced_3dgs_torch.ops.knn import knn
+    from reduced_3dgs_torch.ops.projection import quat_to_rotmat
+    from reduced_3dgs_torch.pruning.trainer import (camera_matrices, masked_median,
+                                                    redundancy_minimum)
+    from reduced_3dgs_torch.ops.redundancy import find_minimum_projected_pixel_size
+    xyz = model._xyz.detach()
+    full, inv, hs, ws = camera_matrices(views)
+    radius = (find_minimum_projected_pixel_size(full, inv, xyz, hs, ws) * box_size
+              * math.sqrt(3.0) / 2.0).double()
+    _, ids = knn(xyz, KNN_K)
+    x64 = xyz.double()
+    safe = ids.clamp(min=0)
+    local = torch.einsum("nki,nij->nkj", x64[:, None, :] - x64[safe],
+                         quat_to_rotmat(model.get_rotation.detach().double()))
+    aug = model.get_scaling.detach().double()[safe] + radius[:, None, None]
+    q = torch.sum(local * local / (aug * aug), dim=-1)
+    q = torch.where(ids >= 0, q, torch.full_like(q, math.inf))
+    counts = redundancy_minimum(ids, q < 1).double()
+    threshold = max(float(counts.mean() + counts.std()), 3.0)
+    opacity = torch.sigmoid(model._opacity.detach()[:, 0])
+    median = float(masked_median(opacity, counts > threshold))
+    return q, counts, threshold, opacity, median
+
+
+def near(values, threshold):
+    """How many of `values` lie within DECISION_MARGIN (relative) of
+    `threshold` without equalling it."""
+    if not math.isfinite(threshold):
+        return 0
+    d = (values.double() - threshold).abs()
+    return int(((d > 0) & (d <= DECISION_MARGIN * max(abs(threshold), 1e-12))).sum())
+
+
+def mercy_phase(card, params, poses):
+    """Phase 9 (c): one mercy event at the bench scene over the 4 views,
+    timed whole and by stage, under the profiler, and on a subset against
+    the same event on the CPU."""
+    from reduced_3dgs_torch.dataset.dataset import CameraDataset
+    from reduced_3dgs_torch.ops.knn import knn
+    from reduced_3dgs_torch.ops.redundancy import (find_minimum_projected_pixel_size,
+                                                   sphere_ellipsoid_intersection)
+    from reduced_3dgs_torch.pruning.trainer import (camera_matrices, mercy_gaussians,
+                                                    mercy_policy, redundancy_minimum)
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    dev = torch.device("cuda")
+    model = VariableSHGaussianModel(3, device=dev).load_numpy(params)
+    views = CameraDataset([view_camera(pose, dev) for pose in poses])
+    with torch.no_grad():
+        event_ms = cuda_ms(lambda: mercy_gaussians(model, views), warmup=1,
+                           repeats=PHASE9_REPEATS)
+        removed = int(mercy_gaussians(model, views).sum())
+        xyz, scaling = model._xyz.detach(), model.get_scaling.detach()
+        rotation = model.get_rotation.detach()
+        opacity = torch.sigmoid(model._opacity.detach()[:, 0])
+        state = {}
+
+        def pixel():
+            full, inv, hs, ws = camera_matrices(views)
+            state["radius"] = (find_minimum_projected_pixel_size(full, inv, xyz, hs, ws)
+                               * 1.0 * math.sqrt(3.0) / 2.0)
+
+        def neighbours():
+            state["ids"] = knn(xyz, KNN_K)[1]
+
+        def intersection():
+            state["mask"] = sphere_ellipsoid_intersection(xyz, scaling, rotation, state["ids"],
+                                                          state["radius"])[1]
+
+        def segment_min():
+            state["counts"] = redundancy_minimum(state["ids"], state["mask"])
+
+        def policy():
+            state["removal"] = mercy_policy(state["counts"], opacity, 1.0, 3,
+                                            "redundancy_opacity")
+
+        stages = {name: cuda_ms(fn, warmup=1, repeats=PHASE9_REPEATS) for name, fn in (
+            ("pixel size", pixel), ("knn", neighbours), ("intersection", intersection),
+            ("segment-min", segment_min), ("policy", policy))}
+        if int(state["removal"].sum()) != removed:
+            raise AssertionError("the mercy stages disagree with mercy_gaussians")
+        busy = device_busy(lambda: mercy_gaussians(model, views), calls=3)
+    counts = state["counts"].double()
+    log(f"phase 9 [{card}]: mercy event (mercy_gaussians, box 1, lambda 1, minimum 3, "
+        f"redundancy_opacity) over {len(views)} views at N={model.num_points}: "
+        f"{event_ms:.4f} ms (median of {PHASE9_REPEATS}); stages "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items())
+        + f"; removes {removed}; redundancy counts mean {float(counts.mean()):.4f}, std "
+        f"{float(counts.std()):.4f}, max {int(counts.max())}")
+    n_launch, busy_ms, wall_ms, top, _ = busy
+    if busy_ms > 0:
+        log(f"phase 9 [{card}]: under torch.profiler, per mercy event: {n_launch:.0f} device "
+            f"kernels and copies, device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall (idle "
+            f"share {1 - busy_ms / wall_ms:.3f}); top: "
+            + "; ".join(f"{k} x{c} {ms:.4f} ms" for k, c, ms in top))
+    else:
+        log("phase 9: the mercy event's idle share not measured (the profiler saw no device "
+            "time)")
+    del model, state
+
+    # The subset on the card and on the CPU.
+    sub_rows = np.argsort(params["xyz"][:, 0], kind="stable")[:MERCY_SUBSET]
+    sub = {k: v[sub_rows] for k, v in params.items()}
+    cpu = torch.device("cpu")
+    card_model = VariableSHGaussianModel(3, device=dev).load_numpy(sub)
+    cpu_model = VariableSHGaussianModel(3, device=cpu).load_numpy(sub)
+    cpu_views = CameraDataset([view_camera(pose, cpu) for pose in poses])
+    failures = []
+    for box in MERCY_BOXES:
+        with torch.no_grad():
+            card_mask = mercy_gaussians(card_model, views, box_size=box).cpu()
+            cpu_mask = mercy_gaussians(cpu_model, cpu_views, box_size=box)
+            q, counts, threshold, opacity, median = mercy_decisions(cpu_model, cpu_views, box)
+            card_ids = knn(card_model._xyz.detach(), KNN_K)[1].cpu()
+            cpu_ids = knn(cpu_model._xyz.detach(), KNN_K)[1]
+        same_sets = sum(set(a) == set(b) for a, b in zip(card_ids.tolist(), cpu_ids.tolist()))
+        log(f"phase 9 [{card}]: mercy on the {MERCY_SUBSET}-Gaussian subset, box {box}: card "
+            f"removes {int(card_mask.sum())}, CPU {int(cpu_mask.sum())}, masks equal "
+            f"{torch.equal(card_mask, cpu_mask)}; neighbour sets equal on {same_sets} of "
+            f"{MERCY_SUBSET} rows; threshold {threshold:.6f}, redundant "
+            f"{int((counts > threshold).sum())}, median opacity {median:.6f}; decisions within "
+            f"{DECISION_MARGIN} of their threshold: quadratic forms {near(q, 1.0)}, counts "
+            f"{near(counts, threshold)}, opacities {near(opacity, median)}")
+        if not torch.equal(card_mask, cpu_mask):
+            failures.append(f"box {box}: the card's mask differs from the CPU's on "
+                            f"{int((card_mask != cpu_mask).sum())} rows")
+    if failures:
+        raise AssertionError("phase 9 mercy: " + "; ".join(failures))
+
+
+def flagship_phase(card, params_p, src, wrappers, tmp, dense_config):
+    """Phase 9 (d): train.training() with the flagship trainer for
+    FLAGSHIP_STEPS steps from phase 8's start and calibration; checks every
+    event's N bookkeeping, the mercy event and the launch counts, which it
+    returns."""
+    from reduced_3dgs_torch.combinations import (
+        SHCullingOpacityResetFullReducedDensificationTrainer)
+    from reduced_3dgs_torch.dataset.dataset import prepare_dataset
+    from reduced_3dgs_torch.pruning import trainer as pruning_trainer
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    from reduced_3dgs_torch.train import training
+
+    dev = torch.device("cuda")
+    dataset = prepare_dataset(src)
+    if any(cam.ground_truth_depth is None for cam in dataset):
+        raise AssertionError("prepare_dataset did not load every view's depth")
+    config = dict(FLAGSHIP_CONFIG, **{k: dense_config[k] for k in (
+        "densify_grad_threshold", "densify_percent_dense", "prune_percent_too_big")})
+    model = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
+    trainer = SHCullingOpacityResetFullReducedDensificationTrainer(model, dataset, **config)
+    densifying = trainer.base_trainer.base_trainer.base_trainer
+    pruner = densifying.densifier
+    log(f"phase 9: flagship onion: {type(trainer).__name__} > "
+        f"{type(trainer.base_trainer).__name__} > "
+        f"{type(trainer.base_trainer.base_trainer).__name__} > {type(densifying).__name__}("
+        f"{type(densifying.base_trainer).__name__}, {type(pruner).__name__} > "
+        f"{type(pruner.base_densifier).__name__} > "
+        f"{type(pruner.base_densifier.base_densifier).__name__}); mercy box "
+        f"{pruner.box_size}, lambda {pruner.lambda_mercy}, minimum {pruner.mercy_minimum}, "
+        f"{pruner.mercy_type}")
+
+    # Observation only: each instruction, each mercy event and the first
+    # mercy event's model.
+    instructions, mercy_events, first_state = {}, [], {}
+    apply = densifying.apply_instruction
+    mercy_fn = pruning_trainer.mercy_gaussians
+
+    def record_apply(instruction):
+        if instruction.remove_mask is not None or instruction.appends:
+            removed = (0 if instruction.remove_mask is None
+                       else int(instruction.remove_mask.sum()))
+            added = sum(int(sp.select.sum()) * sp.copies for sp in instruction.appends)
+            instructions[trainer.curr_step] = (model.num_points, added, removed)
+        return apply(instruction)
+
+    def record_mercy(m, *args, **kwargs):
+        if not first_state:
+            first_state.update({k: v.detach().clone() for k, v in m.param_dict().items()})
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        mask = mercy_fn(m, *args, **kwargs)
+        end.record()
+        mercy_events.append((trainer.curr_step, m.num_points, mask, start, end))
+        return mask
+
+    step_events = []
+    take_step = trainer.step
+
+    def timed_step(camera):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = take_step(camera)
+        end.record()
+        step_events.append((trainer.curr_step, start, end))
+        return out
+
+    densifying.apply_instruction = record_apply
+    pruning_trainer.mercy_gaussians = record_mercy
+    trainer.step = timed_step
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        losses = training(dataset, model, trainer, None, os.path.join(tmp, "flagship"),
+                          iteration=FLAGSHIP_STEPS, save_iterations=[])
+        torch.cuda.synchronize()
+    finally:
+        pruning_trainer.mercy_gaussians = mercy_fn
+        densifying.apply_instruction = apply
+        trainer.step = take_step
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    values = torch.stack(losses).cpu().tolist()
+    step_times = {s: a.elapsed_time(b) for s, a, b in step_events}
+    events = sorted(set(F_SPLIT + F_PRUNE + F_IMPORTANCE + F_CULL + F_RESET))
+    ordinary = statistics.median(t for s, t in step_times.items() if s not in events)
+
+    failures = []
+    ordered = sorted(instructions.items())
+    next_n = [v[0] for _, v in ordered][1:] + [model.num_points]
+    for (s, (n_before, added, removed)), n_after in zip(ordered, next_n):
+        log(f"phase 9: after step {s} ({step_times[s]:.4f} ms, {step_times[s] / ordinary:.2f}x "
+            f"the median ordinary step): N {n_before} -> {n_after}, appended {added}, removed "
+            f"{removed} (the OR of the removal masks)")
+        if n_after != n_before + added - removed:
+            failures.append(f"step {s}: N {n_before} + appended {added} - removed {removed} is "
+                            f"not the next N {n_after}")
+    if sorted(instructions) != sorted(set(F_SPLIT + F_PRUNE + F_IMPORTANCE)):
+        failures.append(f"instructions after steps {sorted(instructions)}")
+    for s, n, mask, start, end in mercy_events:
+        log(f"phase 9: mercy event after step {s}: N {n}, removes {int(mask.sum())}, "
+            f"{start.elapsed_time(end):.4f} ms")
+    if [e[0] for e in mercy_events] != list(F_PRUNE):
+        failures.append(f"mercy events after steps {[e[0] for e in mercy_events]}")
+    first_removed = int(mercy_events[0][2].sum()) if mercy_events else 0
+    if first_removed == 0 and first_state:
+        probe = VariableSHGaussianModel(3, device=dev).load_numpy(
+            {k: v.cpu().numpy() for k, v in first_state.items()})
+        fires = {}
+        with torch.no_grad():
+            for box in MERCY_FIRE_BOXES:
+                fires[box] = int(pruning_trainer.mercy_gaussians(probe, dataset,
+                                                                 box_size=box).sum())
+            _, counts, threshold, _, _ = mercy_decisions(probe, dataset, 1.0)
+        log(f"phase 9: the first mercy event removed nothing at box 1: redundancy counts max "
+            f"{int(counts.max())}, mean {float(counts.mean()):.4f}, threshold {threshold:.4f} "
+            f"(no count exceeds it); removals on that model by box size {fires}")
+        del probe
+    log(f"phase 9 [{card}]: training() {FLAGSHIP_STEPS} steps of the flagship in {wall:.2f} s; "
+        f"N {N_GAUSSIANS} -> {model.num_points}; median ordinary step {ordinary:.4f} ms; "
+        f"losses {values}; launches {launches}")
+    expected = {"composite_fwd": FLAGSHIP_STEPS, "composite_bwd": FLAGSHIP_STEPS,
+                "composite_fwd_stats": len(dataset) * (len(F_IMPORTANCE) + 2 * len(F_CULL))}
+    if launches != expected:
+        failures.append(f"flagship launched {launches}, expected {expected}")
+    if len(values) != FLAGSHIP_STEPS or not all(map(math.isfinite, values)):
+        failures.append(f"flagship losses are not all finite: {values}")
+    rows = {v.shape[0] for t in trainer.engine.state_trees().values() for v in t.values()}
+    if rows != {model.num_points}:
+        failures.append(f"per-Gaussian tensors have rows {sorted(rows)}")
+    if failures:
+        raise AssertionError("phase 9: " + "; ".join(failures))
     return launches
 
 
@@ -1173,8 +1626,16 @@ def run(tmp):
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- phase 8
-    dense_launches = densification_phase(card, model, params_p, src, cameras, wrappers, tmp,
-                                         step_ms)
+    _, dense_config = densification_phase(card, model, params_p, src, cameras, wrappers, tmp,
+                                          step_ms)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 9
+    knn_phase(card, params)
+    colmap_init_phase(card, params, tmp)
+    mercy_phase(card, params, poses)
+    torch.cuda.empty_cache()
+    flagship_launches = flagship_phase(card, params_p, src, wrappers, tmp, dense_config)
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
@@ -1182,7 +1643,7 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_fwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:300",
-        "launches": dense_launches["composite_fwd"],
+        "launches": flagship_launches["composite_fwd"],
         "max_abs_err": bench["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1194,7 +1655,7 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_fwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:300",
-        "launches": dense_launches["composite_fwd_stats"],
+        "launches": flagship_launches["composite_fwd_stats"],
         "max_abs_err": stats_max_abs_err,
         "ms": stats_ms,
         "plain_ms": stats_plain_ms,
@@ -1206,7 +1667,7 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_bwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:502",
-        "launches": dense_launches["composite_bwd"],
+        "launches": flagship_launches["composite_bwd"],
         "max_abs_err": bwd_max_abs_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

@@ -1,10 +1,11 @@
-"""COLMAP sparse-model parsing, binary and text (counterpart of
-reduced_3dgs_tpu/dataset/colmap.py; numpy only)."""
+"""COLMAP sparse-model parsing, binary and text, and the model's start
+from the sparse points (counterpart of reduced_3dgs_tpu/dataset/colmap.py;
+numpy only)."""
 from __future__ import annotations
 
 import os
 import struct
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -166,3 +167,18 @@ def load_sparse(source: str):
         images = read_images_text(os.path.join(sparse, "images.txt"))
         xyz, rgb = read_points3d_text(os.path.join(sparse, "points3D.txt"))
     return cams, images, xyz, rgb
+
+
+def colmap_init(gaussians, source: str, scene_extent: Optional[float] = None):
+    """Initialise ``gaussians`` from the sparse points of the COLMAP dataset
+    at ``source`` (``create_from_pcd``, on the model's device). The scene
+    extent defaults to the radius of the image centres' bounding sphere
+    times 1.1 (1.0 when they coincide)."""
+    _, images, xyz, rgb = load_sparse(source)
+    if scene_extent is None:
+        centers = [-qvec2rotmat(img.qvec).T @ img.tvec for img in images.values()]
+        centers = np.array(centers) if centers else np.zeros((1, 3))
+        avg = centers.mean(0)
+        scene_extent = float(np.linalg.norm(centers - avg, axis=1).max() * 1.1) or 1.0
+    return gaussians.create_from_pcd(xyz.astype(np.float32), rgb.astype(np.float32) / 255.0,
+                                     scene_extent=scene_extent)

@@ -112,6 +112,36 @@ class GaussianModel(nn.Module):
             name: torch.tensor(np.asarray(params[name], np.float32), device=self.device)
             for name in PARAM_NAMES})
 
+    # --- construction from a point cloud ---------------------------------------
+    @torch.no_grad()
+    def create_from_pcd(self, points, colors, scene_extent: float = 1.0):
+        """Initialise from a sparse point cloud (the COLMAP start): centres
+        ``points`` [N,3], DC colour from ``colors`` [N,3] in [0, 1], no higher
+        bands, identity rotations, opacity 0.1, and isotropic log scales of
+        sqrt(max(mean_knn_dist_sq, 1e-7)), computed on the model's device
+        (simple-knn's distCUDA2 in the reference). Sets
+        ``spatial_lr_scale`` to ``scene_extent``."""
+        from ..ops.knn import mean_knn_dist_sq
+        from ..ops.sh import SH_C0
+        from ..utils.math import inverse_sigmoid
+        points = torch.as_tensor(np.asarray(points, np.float32), device=self.device)
+        colors = torch.as_tensor(np.asarray(colors, np.float32), device=self.device)
+        n = points.shape[0]
+        n_rest = (self.max_sh_degree + 1) ** 2 - 1
+        dist2 = torch.clamp(mean_knn_dist_sq(points), min=1e-7)
+        scales = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+        rotation = torch.zeros((n, 4), device=self.device)
+        rotation[:, 0] = 1.0
+        self.set_parameters(dict(
+            xyz=points,
+            features_dc=((colors - 0.5) / SH_C0)[:, None, :],
+            features_rest=torch.zeros((n, n_rest, 3), device=self.device),
+            scaling=scales,
+            rotation=rotation,
+            opacity=inverse_sigmoid(torch.full((n, 1), 0.1, device=self.device))))
+        self.spatial_lr_scale = float(scene_extent)
+        return self
+
     # --- rendering ----------------------------------------------------------
     def render_settings(self, camera: Camera) -> RenderSettings:
         return RenderSettings(

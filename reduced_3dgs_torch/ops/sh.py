@@ -67,12 +67,15 @@ def sh_basis(dirs: torch.Tensor, degree: int = MAX_SH_DEGREE) -> torch.Tensor:
 def eval_sh(shs: torch.Tensor, dirs: torch.Tensor, degree: int = MAX_SH_DEGREE,
             clamp: bool = True) -> torch.Tensor:
     """SH coefficients [..., K, 3] -> RGB [..., 3], with the +0.5 offset and,
-    when ``clamp``, the positive clamp (zero gradient where clamped)."""
+    when ``clamp``, the positive clamp (zero gradient where clamped). The
+    clamp is ``torch.maximum``, whose gradient at a colour of exactly 0 is
+    1/2, as ``jnp.maximum``'s (``torch.clamp`` passes all of it); the SH
+    cull bakes a colour that was clamped in every view to exactly that."""
     basis = sh_basis(dirs, degree)
     k = basis.shape[-1]
     rgb = torch.sum(basis[..., :, None] * shs[..., :k, :], dim=-2) + 0.5
     if clamp:
-        rgb = torch.clamp(rgb, min=0.0)
+        rgb = torch.maximum(rgb, torch.zeros_like(rgb))
     return rgb
 
 

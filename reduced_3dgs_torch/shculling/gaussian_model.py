@@ -53,6 +53,12 @@ class VariableSHGaussianModel(GaussianModel):
                                    dtype=torch.int32, device=self.device)
         return self
 
+    def create_from_pcd(self, *args, **kwargs):
+        """As GaussianModel.create_from_pcd, every Gaussian at the maximum
+        degree."""
+        super().create_from_pcd(*args, **kwargs)
+        return self.init_degrees()
+
     def load_numpy(self, params, degrees=None):
         """As GaussianModel.load_numpy; ``degrees`` [N] is the JAX model's
         ``_degrees`` array, all at the maximum degree when None (so

@@ -7,19 +7,22 @@ epoch, and saves the model's PLY and the dataset's cameras.json at the
 non-finite loss.
 
 Until the mode registry is ported, the entry point is a trainer driven by
-``training``. The fullest ported composition is the ``densify-shculling``
-mode's, which densifies (split, clone, opacity prune, opacity reset, depth
-supervision) and culls SH bands::
+``training``. The flagship is the ``densify-pruning-shculling`` mode's
+trainer, started as a user starts it, from the COLMAP sparse points: it
+densifies (split, clone, opacity prune, opacity reset, depth supervision),
+prunes by redundancy ("mercy") and by rendered importance, and culls SH
+bands::
 
     dataset = prepare_dataset(source, device="cuda")
-    model = VariableSHGaussianModel(3, device="cuda").load_ply(ply_path)
-    trainer = SHCullingOpacityResetDensificationTrainer(model, dataset)
+    model = colmap_init(VariableSHGaussianModel(3, device="cuda"), source)
+    trainer = SHCullingOpacityResetFullReducedDensificationTrainer(model, dataset)
     training(dataset, model, trainer, None, out_dir,
              iteration=30000, save_iterations=[7000, 30000])
 
-(``combinations.SHCullingOpacityResetDensificationTrainer``; a plain
-``trainer.Trainer(model, dataset)`` trains without events.) ``main`` and its
-``--mode`` registry are not ported yet.
+(``dataset.colmap_init``, ``combinations``; ``model.load_ply(path)``
+starts from a PLY instead, and a plain ``trainer.Trainer(model, dataset)``
+trains without events.) ``main`` and its ``--mode`` registry are not ported
+yet.
 """
 from __future__ import annotations
 

@@ -14,11 +14,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
-    """Import every module of the port with jax, flax, tqdm and the JAX
-    package blocked; none of them may be needed or end up loaded."""
+    """Import every module of the port with jax, flax, tqdm, the JAX
+    package and the JAX side's tools blocked; none of them may be needed or
+    end up loaded."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
-        BLOCKED = ("jax", "jaxlib", "flax", "tqdm", "reduced_3dgs_tpu")
+        BLOCKED = ("jax", "jaxlib", "flax", "tqdm", "reduced_3dgs_tpu", "tools")
         for name in list(sys.modules):
             if name.split(".")[0] in BLOCKED:
                 del sys.modules[name]
@@ -44,14 +45,18 @@ def test_port_imports_no_jax():
                      "reduced_3dgs_torch.trainer.densifier.abc",
                      "reduced_3dgs_torch.importance.trainer",
                      "reduced_3dgs_torch.shculling.trainer",
-                     "reduced_3dgs_torch.ops.shculling_stats"):
+                     "reduced_3dgs_torch.ops.shculling_stats",
+                     "reduced_3dgs_torch.ops.knn", "reduced_3dgs_torch.ops.redundancy",
+                     "reduced_3dgs_torch.pruning.trainer",
+                     "reduced_3dgs_torch.pruning.combinations",
+                     "reduced_3dgs_torch.combinations"):
             assert name in names, name
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 28  # every module was imported
+    assert int(out.stdout.strip()) >= 33  # every module was imported
 
 
 def test_render_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):

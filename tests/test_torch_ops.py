@@ -130,6 +130,24 @@ def test_eval_sh(degree):
            jsh.eval_sh(jnp.asarray(shs), jd, degree))
 
 
+def test_eval_sh_clamp_gradient_at_zero_matches_jax():
+    """Degree 0 with the DC coefficient baked from a black mean colour,
+    (0 - 0.5) / SH_C0 in float32, as the SH cull writes it: the colour is
+    exactly 0, where the clamp passes half of the gradient in both
+    packages."""
+    import jax
+    black = np.float32(-0.5) / np.float32(jsh.SH_C0)
+    dc = np.array([[[black, 0.3, -4.0]]], np.float32)
+    dirs = np.array([[0.0, 0.0, 1.0]], np.float32)
+    t = torch.from_numpy(dc).requires_grad_(True)
+    tsh.eval_sh(t, torch.from_numpy(dirs), 0).sum().backward()
+    j = jax.grad(lambda s: jsh.eval_sh(s, jnp.asarray(dirs), 0).sum())(jnp.asarray(dc))
+    assert float(tsh.eval_sh(torch.from_numpy(dc), torch.from_numpy(dirs), 0)[0, 0]) == 0.0
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(j))
+    c0 = float(np.float32(jsh.SH_C0))
+    assert t.grad[0, 0].tolist() == [0.5 * c0, c0, 0.0]
+
+
 def test_degree_coeff_mask():
     deg = np.array([0, 1, 2, 3, 3, 0, 2], np.int32)
     np.testing.assert_array_equal(tsh.degree_coeff_mask(torch.from_numpy(deg)).numpy(),
