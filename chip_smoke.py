@@ -56,6 +56,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            after 20, the SH cull after 15, the opacity reset after 30; each
            event's N bookkeeping and time, and the launch counts, which the
            kernels line reports
+  phase 10 quantization, the CLIs and checkpoints: (a) kmeans of each of
+           the eight attributes at the bench scene on the card and on the
+           CPU, 10 Lloyd iterations of 256 centres in lockstep, and timed
+           on the card; (b)
+           ExcludeZeroSHQuantizer.quantize cold and warm, by attribute, and
+           a warm event under torch.profiler; (c) train.main
+           --mode densify-pruning-shculling --quantize --with_scale_reg for
+           30 steps on phase 9's views, start and schedule, with quantize
+           events at the start of steps 11 and 21 and the launch counts read
+           around it; (d) quantize.main on its PLY, then render.main
+           --load_quantized and render.main of the dequantized PLY, equal,
+           with their launch counts and the size ratio; (e) a Trainer's
+           checkpoint after 20 steps, loaded into a fresh trainer, and 5 more
+           steps on both
 
 Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
@@ -137,6 +151,24 @@ FLAGSHIP_CONFIG = dict(densify_from_iter=10, densify_until_iter=30, densify_inte
                        opacity_reset_until_iter=30, opacity_reset_value=0.01,
                        cull_at_steps=[15], sh_degree_up_interval=4)
 F_SPLIT, F_PRUNE, F_IMPORTANCE, F_CULL, F_RESET = (10, 20, 30), (15, 20, 25, 30), (20,), (15,), (30,)
+# Phase 10: K-Means of each attribute on the card against the CPU, 10 Lloyd
+# iterations of 256 centres in lockstep; updated centres within 1e-4.
+KMEANS_CLUSTERS = 256
+KMEANS_ITERATIONS = 10
+TOL_KMEANS_CENTERS = 1e-4
+# The quantizing flagship CLI: phase 9's schedule, and a quantize event at
+# the start of steps 11 and 21. The quantized model's two render paths agree
+# to 1e-6, and its PLY is at most 0.2 of the raw one.
+QUANTIZE_CLI_CONFIG = dict(quantize_from_iter=10, quantize_interval=10)
+Q_STEPS = (11, 21)
+TOL_QUANTIZED_RENDER = 1e-6
+MAX_QUANTIZED_SIZE_RATIO = 0.2
+# Checkpoint resume: 20 steps, save, load into a fresh trainer, 5 more steps
+# on both; losses within 1e-5 (relative), parameters within the JAX
+# package's gradient bars, rtol 2e-3 and atol 3e-5.
+CKPT_STEPS, CKPT_MORE_STEPS = 20, 5
+TOL_CKPT_LOSS_REL = 1e-5
+TOL_CKPT_RTOL, TOL_CKPT_ATOL = 2e-3, 3e-5
 # Box sizes tried on the first mercy event's model when the default removes
 # nothing.
 MERCY_FIRE_BOXES = (2.0, 4.0, 8.0, 16.0)
@@ -1177,6 +1209,329 @@ def flagship_phase(card, params_p, src, wrappers, tmp, dense_config):
     return launches
 
 
+def argmin_margin(x, centers):
+    """[N] gap between each row's two nearest centres (ops.kmeans'
+    distances, in assign's chunks) relative to the larger of the second
+    distance and |x|^2 + |c|^2 of the nearest centre: the expansion
+    |x|^2 - 2 x.c + |c|^2 rounds at about float32's epsilon times the
+    latter, so a gap below it is the last bits', whatever the distances."""
+    from reduced_3dgs_torch.ops.kmeans import ASSIGN_CHUNK, pairwise_sq_dists
+    c2 = torch.sum(centers * centers, dim=1)
+    gaps = []
+    for xs in x.split(ASSIGN_CHUNK):
+        top2 = torch.topk(pairwise_sq_dists(xs, centers), 2, dim=1, largest=False)
+        d = top2.values
+        scale = torch.maximum(d[:, 1], torch.sum(xs * xs, dim=1) + c2[top2.indices[:, 0]])
+        gaps.append((d[:, 1] - d[:, 0]) / torch.clamp(scale, min=1e-30))
+    return torch.cat(gaps)
+
+
+def kmeans_phase(card, params):
+    """Phase 10 (a): kmeans of each attribute of the bench scene on the card
+    and on the CPU, KMEANS_ITERATIONS Lloyd iterations of KMEANS_CLUSTERS
+    centres (the port's k-means++ on the card) in lockstep: each iteration
+    assigns on both devices from the card's centres, equal on every row
+    with a margin (argmin_margin), and the card's update must lie within
+    TOL_KMEANS_CENTERS of the plain mean of its assignment on the CPU.
+    Free-running, two runs
+    drift apart, the card against itself too: float atomics move a centre
+    by a last bit, a near-tie row flips, its centre moves by ~1e-4 and more
+    rows follow. Also times kmeans on the card, tol 0 and KMEANS_ITERATIONS
+    iterations, and runs it twice to show that drift."""
+    from reduced_3dgs_torch.ops.kmeans import assign, kmeans, kmeanspp_init, lloyd
+    from reduced_3dgs_torch.quantization import ExcludeZeroSHQuantizer
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    dev = torch.device("cuda")
+    model = VariableSHGaussianModel(3, device=dev).load_numpy(params)
+    quantizer = ExcludeZeroSHQuantizer()
+    failures = []
+    for key in quantizer.keys(model):
+        x = quantizer.values(model, key).contiguous()
+        x_cpu = x.cpu()
+        weights = torch.ones((x.shape[0],), device=dev)
+        centers = kmeanspp_init(x, weights, KMEANS_CLUSTERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        free, free_ids = kmeans(x, KMEANS_CLUSTERS, init_centers=centers,
+                                max_iter=KMEANS_ITERATIONS, tol=0.0)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        again, again_ids = kmeans(x, KMEANS_CLUSTERS, init_centers=centers,
+                                  max_iter=KMEANS_ITERATIONS, tol=0.0)
+        on_margin = differ = 0
+        center_err, margin_share = 0.0, []
+        for _ in range(KMEANS_ITERATIONS):
+            c_cpu = centers.cpu()
+            ids_card, ids_cpu = assign(x, centers).cpu(), assign(x_cpu, c_cpu)
+            margin = (argmin_margin(x, centers) > DECISION_MARGIN).cpu()
+            margin_share.append(float(margin.float().mean()))
+            differ += int((ids_card != ids_cpu).sum())
+            on_margin += int(((ids_card != ids_cpu) & margin).sum())
+            # The update on the card against its plain version on the CPU
+            # (the mean of each cluster's rows, an empty cluster kept) from
+            # the card's own assignment.
+            new = lloyd(x, weights, centers, 1, 0.0)[0]
+            counts = torch.bincount(ids_card, minlength=KMEANS_CLUSTERS).to(x.dtype)[:, None]
+            sums = torch.zeros_like(c_cpu).index_add_(0, ids_card, x_cpu)
+            plain = torch.where(counts > 0, sums / counts, c_cpu)
+            center_err = max(center_err, float((new.cpu() - plain).abs().max()))
+            centers = new
+        log(f"phase 10 [{card}]: kmeans of {key} [{x.shape[0]}, {x.shape[1]}], "
+            f"{KMEANS_CLUSTERS} clusters, {KMEANS_ITERATIONS} iterations: card {card_ms:.4f} ms "
+            f"(tol 0); in lockstep with the CPU, rows with a margin {min(margin_share):.6f} "
+            f"(least over the iterations), ids differ on {differ} row-iterations, {on_margin} "
+            f"of them with a margin, updated centres within {center_err:.3e}; free-running "
+            f"twice on the card: ids differ on {int((free_ids != again_ids).sum())} rows, "
+            f"centres by {float((free - again).abs().max()):.3e}")
+        if on_margin or not center_err <= TOL_KMEANS_CENTERS:
+            failures.append(f"{key}: {on_margin} ids differ on rows with a margin, centres "
+                            f"{center_err:.3e} apart")
+    if failures:
+        raise AssertionError("phase 10 kmeans: " + "; ".join(failures))
+
+
+def quantize_phase(card, params, params_p):
+    """Phase 10 (b): ExcludeZeroSHQuantizer.quantize at the bench scene,
+    cold (no codebook, max_iter 300) on the perturbed start and warm
+    (warm_max_iter 15) on the bench scene from that codebook, each timed by
+    attribute with its Lloyd iterations; a warm event under the profiler."""
+    from reduced_3dgs_torch.ops import kmeans as kmeans_module
+    from reduced_3dgs_torch.quantization import ExcludeZeroSHQuantizer
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    dev = torch.device("cuda")
+    start = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
+    target = VariableSHGaussianModel(3, device=dev).load_numpy(params)
+    quantizer = ExcludeZeroSHQuantizer()
+    lloyd = kmeans_module.lloyd
+    iterations = []
+
+    def counted(*args):
+        out = lloyd(*args)
+        iterations.append(out[2])
+        return out
+
+    def event(model, codebook):
+        times, codebooks = {}, {}
+        kmeans_module.lloyd = counted
+        try:
+            for key in quantizer.keys(model):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                codebooks[key], _ = quantizer.produce_clusters_of(model, key, codebook.get(key))
+                torch.cuda.synchronize()
+                times[key] = (time.perf_counter() - t0) * 1e3
+        finally:
+            kmeans_module.lloyd = lloyd
+        return times, codebooks
+
+    quantizer.produce_clusters_of(start, "opacity")      # first-use costs
+    iterations.clear()
+    cold_ms, cold = event(start, {})
+    cold_iters = list(iterations)
+    iterations.clear()
+    warm_ms, _ = event(target, cold)
+    warm_iters = list(iterations)
+    for name, ms, iters in (("cold", cold_ms, cold_iters), ("warm", warm_ms, warm_iters)):
+        log(f"phase 10 [{card}]: quantize {name} at N={N_GAUSSIANS}: total "
+            f"{sum(ms.values()):.4f} ms; by attribute (ms, Lloyd iterations) "
+            + ", ".join(f"{k} {v:.4f} ({i})" for (k, v), i in zip(ms.items(), iters)))
+
+    def warm_event():
+        quantizer._codebook_dict = dict(cold)
+        quantizer.quantize(target)
+
+    stats = device_busy(warm_event, calls=3)
+    n_launch, busy_ms, wall_ms, top, _ = stats
+    if busy_ms > 0:
+        log(f"phase 10 [{card}]: under torch.profiler, per warm quantize event: {n_launch:.0f} "
+            f"device kernels and copies, device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall "
+            f"(idle share {1 - busy_ms / wall_ms:.3f}); top: "
+            + "; ".join(f"{k} x{c} {ms:.4f} ms" for k, c, ms in top))
+    else:
+        log("phase 10: the warm quantize event's idle share not measured (the profiler saw no "
+            "device time)")
+    if max(warm_iters) > quantizer.warm_max_iter or max(cold_iters) > quantizer.max_iter:
+        raise AssertionError(f"phase 10: Lloyd iterations cold {cold_iters}, warm {warm_iters}")
+
+
+def quantize_cli_phase(card, params_p, src, wrappers, tmp, dense_config):
+    """Phase 10 (c, d): train.main with --mode densify-pruning-shculling
+    --quantize --with_scale_reg for FLAGSHIP_STEPS steps (phase 9's views,
+    depths, start and schedule as -o options, quantize events at the start
+    of steps 11 and 21), then quantize.main on its PLY, render.main
+    --load_quantized and render.main of the dequantized PLY (and, for its
+    PSNR, of the trained PLY), with the launch counts read around each."""
+    from reduced_3dgs_torch import quantize, render, train
+    from reduced_3dgs_torch.quantization import ExcludeZeroSHQuantizer, VectorQuantizer
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    from reduced_3dgs_torch.trainer import AbstractTrainer
+    dev = torch.device("cuda")
+    start_ply = os.path.join(tmp, "start", "point_cloud.ply")
+    VariableSHGaussianModel(3, device=dev).load_numpy(params_p).save_ply(start_ply)
+    config = dict(FLAGSHIP_CONFIG, **{k: dense_config[k] for k in (
+        "densify_grad_threshold", "densify_percent_dense", "prune_percent_too_big")},
+                  **QUANTIZE_CLI_CONFIG)
+    out = os.path.join(tmp, "quantized_flagship")
+    argv = ["-s", src, "-d", out, "-i", str(FLAGSHIP_STEPS), "-l", start_ply,
+            "--mode", "densify-pruning-shculling", "--quantize", "--with_scale_reg"]
+    for k, v in config.items():
+        argv += ["-o", f"{k}={v!r}"]
+
+    step, quantize_fn = AbstractTrainer.step, VectorQuantizer.quantize
+    step_times, events = {}, []
+
+    def timed_step(self, camera):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = step(self, camera)
+        end.record()
+        step_times[self.curr_step] = (start, end)
+        return result
+
+    def timed_quantize(self, model, update_codebook=True):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = quantize_fn(self, model, update_codebook)
+        end.record()
+        events.append((update_codebook, model.num_points, start, end))
+        return result
+
+    AbstractTrainer.step, VectorQuantizer.quantize = timed_step, timed_quantize
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        losses = train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        AbstractTrainer.step, VectorQuantizer.quantize = step, quantize_fn
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    values = torch.stack(losses).cpu().tolist()
+    ms = {s: a.elapsed_time(b) for s, (a, b) in step_times.items()}
+    event_steps = sorted(set(F_SPLIT + F_PRUNE + F_IMPORTANCE + F_CULL + F_RESET))
+    ordinary = statistics.median(t for s, t in ms.items()
+                                 if s not in event_steps and s not in Q_STEPS)
+    updates = [(n, a.elapsed_time(b)) for u, n, a, b in events if u]
+    log(f"phase 10 [{card}]: train.main --mode densify-pruning-shculling --quantize "
+        f"--with_scale_reg, {FLAGSHIP_STEPS} steps in {wall:.2f} s; median ordinary step "
+        f"{ordinary:.4f} ms; quantize event steps "
+        + ", ".join(f"{s} {ms[s]:.4f} ms ({ms[s] / ordinary:.2f}x)" for s in Q_STEPS)
+        + "; quantize events (N, ms) " + ", ".join(f"({n}, {t:.4f})" for n, t in updates)
+        + "; other event steps " + ", ".join(f"{s} {ms[s] / ordinary:.2f}x" for s in event_steps)
+        + f"; losses {values}; launches {launches}")
+    failures = []
+    expected = {"composite_fwd": FLAGSHIP_STEPS, "composite_bwd": FLAGSHIP_STEPS,
+                "composite_fwd_stats": N_VIEWS * (len(F_IMPORTANCE) + 2 * len(F_CULL))}
+    if launches != expected:
+        failures.append(f"train.main launched {launches}, expected {expected}")
+    if len(updates) != len(Q_STEPS) or len(events) != len(Q_STEPS) + 1:
+        failures.append(f"quantize events {[(u, n) for u, n, _, _ in events]}")
+    if len(values) != FLAGSHIP_STEPS or not all(map(math.isfinite, values)):
+        failures.append(f"losses are not all finite: {values}")
+
+    # (d) the offline quantizer and the two render paths of its output.
+    it_dir = os.path.join(out, "point_cloud", f"iteration_{FLAGSHIP_STEPS}")
+    out_q = os.path.join(tmp, "quantized_offline")
+    t0 = time.perf_counter()
+    quantize.main(["-s", out, "-d", out_q, "-i", str(FLAGSHIP_STEPS)])
+    torch.cuda.synchronize()
+    q_wall = time.perf_counter() - t0
+    q_dir = os.path.join(out_q, "point_cloud", f"iteration_{FLAGSHIP_STEPS}")
+    raw_bytes = os.path.getsize(os.path.join(it_dir, "point_cloud.ply"))
+    q_bytes = os.path.getsize(os.path.join(q_dir, "point_cloud_quantized.ply"))
+    train_q_bytes = os.path.getsize(os.path.join(it_dir, "point_cloud_quantized.ply"))
+    metrics, render_launches = {}, {}
+    for name, model_dir, flags in (("quantized", out_q, ["--load_quantized"]),
+                                   ("dequantized", out_q, []), ("raw", out, [])):
+        for fn in wrappers.values():
+            fn.launches = 0
+        render.main(["-s", src, "-d", model_dir, "-i", str(FLAGSHIP_STEPS), *flags])
+        torch.cuda.synchronize()
+        render_launches[name] = {n: fn.launches for n, fn in wrappers.items()}
+        with open(os.path.join(model_dir, "metrics.json")) as f:
+            metrics[name] = json.load(f)
+    loaded = ExcludeZeroSHQuantizer().load_quantized(
+        VariableSHGaussianModel(3, device=dev), os.path.join(q_dir, "point_cloud_quantized.ply"))
+    from_ply = VariableSHGaussianModel(3, device=dev).load_ply(
+        os.path.join(q_dir, "point_cloud.ply"))
+    with torch.no_grad():
+        render_err = max(float((loaded(cam)["render"] - from_ply(cam)["render"]).abs().max())
+                         for cam in render.prepare_dataset(src))
+    psnr = {k: [m["psnr"] for m in v["per_image"]] for k, v in metrics.items()}
+    log(f"phase 10 [{card}]: quantize.main of {loaded.num_points} Gaussians in {q_wall:.2f} s; "
+        f"quantized PLY {q_bytes} B against the raw {raw_bytes} B (ratio "
+        f"{q_bytes / raw_bytes:.6f}; the training's own quantized PLY {train_q_bytes} B); "
+        f"render.main --load_quantized psnr {psnr['quantized']}, of the dequantized PLY "
+        f"{psnr['dequantized']}, of the trained (raw) PLY {psnr['raw']}; max |render "
+        f"difference| {render_err:.3e}; launches {render_launches}")
+    for name, got in render_launches.items():
+        if got != {"composite_fwd": N_VIEWS, "composite_fwd_stats": 0, "composite_bwd": 0}:
+            failures.append(f"render {name} launched {got}")
+    if (render_err > TOL_QUANTIZED_RENDER
+            or metrics["quantized"]["per_image"] != metrics["dequantized"]["per_image"]):
+        failures.append(f"the two renders of the quantized model differ by {render_err}")
+    if not q_bytes / raw_bytes <= MAX_QUANTIZED_SIZE_RATIO:
+        failures.append(f"quantized/raw size ratio {q_bytes / raw_bytes}")
+    if loaded.num_points != from_ply.num_points or not bool((loaded._degrees == 3).all()):
+        failures.append("the quantized model did not load with N rows at degree 3")
+    if failures:
+        raise AssertionError("phase 10: " + "; ".join(failures))
+
+
+def checkpoint_phase(card, params_p, src, tmp):
+    """Phase 10 (e): save_checkpoint after CKPT_STEPS steps of a Trainer at
+    the bench scene, load_checkpoint into a fresh trainer over other
+    parameters, then CKPT_MORE_STEPS more steps on both: losses within
+    TOL_CKPT_LOSS_REL, parameters within the JAX package's gradient bars
+    (rtol TOL_CKPT_RTOL, atol TOL_CKPT_ATOL): B3's float atomics vary in
+    their last bits between runs."""
+    from reduced_3dgs_torch.dataset.dataset import prepare_dataset
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    from reduced_3dgs_torch.trainer import Trainer
+    from reduced_3dgs_torch.trainer.checkpoint import load_checkpoint, save_checkpoint
+    dev = torch.device("cuda")
+    dataset = prepare_dataset(src)
+    order = [i % len(dataset) for i in range(CKPT_STEPS + CKPT_MORE_STEPS)]
+    a = Trainer(VariableSHGaussianModel(3, device=dev).load_numpy(params_p), dataset,
+                sh_degree_up_interval=4)
+    for i in order[:CKPT_STEPS]:
+        a.step(dataset[i])
+    path = os.path.join(tmp, "checkpoint", "state.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(a, path)
+    save_s = time.perf_counter() - t0
+    other = {k: v * np.float32(0.5) for k, v in params_p.items()}
+    b = Trainer(VariableSHGaussianModel(3, device=dev).load_numpy(other), dataset,
+                sh_degree_up_interval=4)
+    t0 = time.perf_counter()
+    load_checkpoint(b, path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    losses = {"a": [], "b": []}
+    for i in order[CKPT_STEPS:]:
+        losses["a"].append(a.step(dataset[i])[0])
+        losses["b"].append(b.step(dataset[i])[0])
+    la, lb = (torch.stack(v).cpu().double() for v in losses.values())
+    loss_rel = float(((la - lb).abs() / la.abs()).max())
+    worst, failures = {}, []
+    for name, pa in a.model.param_dict().items():
+        pa, pb = pa.detach().double(), b.model.param_dict()[name].detach().double()
+        excess = (pa - pb).abs() - (TOL_CKPT_ATOL + TOL_CKPT_RTOL * pa.abs())
+        worst[name] = float((pa - pb).abs().max())
+        if bool((excess > 0).any()):
+            failures.append(f"{name}: {int((excess > 0).sum())} entries outside the bars")
+    log(f"phase 10 [{card}]: checkpoint of a Trainer after {CKPT_STEPS} steps at "
+        f"N={a.model.num_points} ({os.path.getsize(path)} B) saved in {save_s:.3f} s, loaded in "
+        f"{load_s:.3f} s; {CKPT_MORE_STEPS} more steps on both: losses {la.tolist()} and "
+        f"{lb.tolist()}, max relative difference {loss_rel:.3e}; max |parameter difference| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    if not loss_rel <= TOL_CKPT_LOSS_REL:
+        failures.append(f"losses differ by {loss_rel:.3e} (relative)")
+    if failures:
+        raise AssertionError("phase 10 checkpoint: " + "; ".join(failures))
+
+
 def card_name():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1636,6 +1991,15 @@ def run(tmp):
     mercy_phase(card, params, poses)
     torch.cuda.empty_cache()
     flagship_launches = flagship_phase(card, params_p, src, wrappers, tmp, dense_config)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 10
+    kmeans_phase(card, params)
+    quantize_phase(card, params, params_p)
+    torch.cuda.empty_cache()
+    quantize_cli_phase(card, params_p, src, wrappers, tmp, dense_config)
+    torch.cuda.empty_cache()
+    checkpoint_phase(card, params_p, src, tmp)
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{

@@ -21,8 +21,8 @@ for layer:
 densifier chain runs first (inside ``DensificationTrainer.optim_step``;
 within it the importance prune, then split and clone, then the opacity and
 mercy prune, their masks ORed over the rows before the event), then the
-opacity reset, then the SH cull. The camera compositions and the mode
-registry are not ported yet.
+opacity reset, then the SH cull. ``prepare.modes`` maps each mode to its
+trainer here; the camera compositions are not ported yet.
 """
 from __future__ import annotations
 

@@ -1,0 +1,119 @@
+"""Factories and the training-mode registry (counterpart of
+reduced_3dgs_tpu/prepare.py:36-128).
+
+``modes`` maps each training mode to its trainer constructor, the JAX
+package's compositions from ``combinations.py``; ``prepare_trainer`` wraps
+it with the scale regulariser (``with_scale_reg``) and the vector-quantizing
+wrapper (``quantize``), in the JAX package's order.
+
+Still to be ported (ROADMAP.md item 22): the five ``camera-*`` modes, which
+need the camera trainer, and the ``gsplat-2dgs`` backend. Asking for one
+raises ``NotImplementedError``; nothing gives way to another mode.
+"""
+from __future__ import annotations
+
+from .combinations import (FullPruningTrainer, OpacityResetFullReducedDensificationTrainer,
+                           SHCullingFullPruningTrainer,
+                           SHCullingOpacityResetDensificationTrainer,
+                           SHCullingOpacityResetFullReducedDensificationTrainer)
+from .dataset.colmap import colmap_init
+from .quantization import VectorQuantizeTrainerWrapper
+from .shculling import VariableSHGaussianModel
+from .trainer.extensions import ScaleRegularizeTrainerWrapper
+
+# Every backend but gsplat-2dgs renders the 3DGS model: here, through the
+# port's CUDA compositors.
+backends = ["cuda", "inria", "gsplat", "gsplat-2dgs"]
+NOT_PORTED = "is not ported yet (ROADMAP.md item 22: the camera trainer, then the rest)"
+
+
+def _camera_mode(mode: str):
+    def constructor(model, dataset, **configs):
+        raise NotImplementedError(f"training mode {mode!r} {NOT_PORTED}")
+    return constructor
+
+
+modes = {
+    "densify-shculling": SHCullingOpacityResetDensificationTrainer,
+    "pruning": FullPruningTrainer,
+    "pruning-shculling": SHCullingFullPruningTrainer,
+    "densify-pruning": OpacityResetFullReducedDensificationTrainer,
+    "densify-pruning-shculling": SHCullingOpacityResetFullReducedDensificationTrainer,
+    **{f"camera-{m}": _camera_mode(f"camera-{m}") for m in (
+        "densify-shculling", "pruning", "pruning-shculling", "densify-pruning",
+        "densify-pruning-shculling")},
+}
+
+
+def get_gaussian_model_class(backend: str, trainable_camera: bool = False):
+    if trainable_camera:
+        raise NotImplementedError(f"a model with trainable cameras {NOT_PORTED}")
+    if backend == "gsplat-2dgs":
+        raise NotImplementedError(f"the {backend!r} backend {NOT_PORTED}")
+    if backend in backends:
+        return VariableSHGaussianModel
+    raise ValueError(f"Unknown backend: {backend}")
+
+
+def prepare_gaussians(sh_degree: int, source: str, device="cuda", trainable_camera: bool = False,
+                      load_ply: str = None, backend: str = "cuda"):
+    """The model on ``device``, from ``load_ply`` or else from the COLMAP
+    sparse points of ``source``."""
+    gaussians = get_gaussian_model_class(backend, trainable_camera)(sh_degree, device=device)
+    if load_ply:
+        return gaussians.load_ply(load_ply)
+    return colmap_init(gaussians, source)
+
+
+def prepare_quantizer(
+        gaussians,
+        dataset,
+        base_constructor,
+        load_quantized: str = None,
+        num_clusters: int = 256,
+        num_clusters_rotation_re=None,
+        num_clusters_rotation_im=None,
+        num_clusters_opacity=None,
+        num_clusters_scaling=None,
+        num_clusters_features_dc=None,
+        num_clusters_features_rest=(),
+        quantize_from_iter: int = 5000,
+        quantize_until_iter: int = 30000,
+        quantize_interval: int = 1000,
+        **configs):
+    trainer = VectorQuantizeTrainerWrapper(
+        base_constructor(gaussians, dataset=dataset, **configs),
+        num_clusters=num_clusters,
+        num_clusters_rotation_re=num_clusters_rotation_re,
+        num_clusters_rotation_im=num_clusters_rotation_im,
+        num_clusters_opacity=num_clusters_opacity,
+        num_clusters_scaling=num_clusters_scaling,
+        num_clusters_features_dc=num_clusters_features_dc,
+        num_clusters_features_rest=num_clusters_features_rest,
+        quantize_from_iter=quantize_from_iter,
+        quantize_until_iter=quantize_until_iter,
+        quantize_interval=quantize_interval,
+    )
+    if load_quantized:
+        n = gaussians.num_points
+        trainer.quantizer.load_quantized(trainer.model, load_quantized)
+        if gaussians.num_points != n:
+            # The trainer's state was sized for the model it was built over.
+            raise ValueError(f"{load_quantized} holds {gaussians.num_points} Gaussians and "
+                             f"the model {n}: start from the PLY saved beside it (-l)")
+    return trainer, trainer.quantizer
+
+
+def prepare_trainer(gaussians, dataset, mode: str, with_scale_reg: bool = False,
+                    quantize: bool = False, load_quantized: str = None, configs=None):
+    """(trainer, quantizer or None) of ``mode``."""
+    configs = dict(configs or {})
+    constructor = modes[mode]
+    if with_scale_reg:
+        base_mode = modes[mode]
+        constructor = (lambda model, dataset, **cfg:
+                       ScaleRegularizeTrainerWrapper(base_mode, model, dataset, **cfg))
+    if quantize:
+        return prepare_quantizer(gaussians, dataset=dataset, base_constructor=constructor,
+                                 load_quantized=load_quantized, **configs)
+    return constructor(gaussians, dataset=dataset, **configs), None

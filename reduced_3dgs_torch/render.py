@@ -1,7 +1,8 @@
 """Rendering and evaluation CLI (counterpart of reduced_3dgs_tpu/render.py).
 
-Renders every camera of a COLMAP dataset from a trained model's PLY, saves
-the images and reports PSNR and SSIM. Runs on CUDA unless ``--device cpu``
+Renders every camera of a COLMAP dataset from a trained model's PLY (or,
+with ``--load_quantized``, its ``point_cloud_quantized.ply``), saves the
+images and reports PSNR and SSIM. Runs on CUDA unless ``--device cpu``
 is given; without a GPU and without that flag it raises.
 
 Usage: python -m reduced_3dgs_torch.render -s <colmap_dir> -d <model_dir> -i 30000
@@ -16,6 +17,7 @@ import torch
 
 from .dataset.dataset import prepare_dataset
 from .ops.ssim import ssim
+from .quantization import ExcludeZeroSHQuantizer
 from .shculling import VariableSHGaussianModel
 from .utils.device import resolve_device
 from .utils.math import psnr
@@ -58,14 +60,14 @@ def main(argv=None):
     parser.add_argument("--no_save_images", action="store_true")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    if args.load_quantized:
-        raise NotImplementedError(
-            "--load_quantized: the quantized PLY reader is ported with the "
-            "quantization slice (slice 4) of the PyTorch port")
 
     it_dir = os.path.join(args.destination, "point_cloud", f"iteration_{args.iteration}")
     model = VariableSHGaussianModel(args.sh_degree, device=device)
-    model.load_ply(os.path.join(it_dir, "point_cloud.ply"))
+    if args.load_quantized:
+        ExcludeZeroSHQuantizer().load_quantized(
+            model, os.path.join(it_dir, "point_cloud_quantized.ply"))
+    else:
+        model.load_ply(os.path.join(it_dir, "point_cloud.ply"))
     dataset = prepare_dataset(source=args.source, device=device)
     metrics = render_dataset(model, dataset, os.path.join(args.destination, "renders"),
                              save_images=not args.no_save_images)

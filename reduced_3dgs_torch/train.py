@@ -1,31 +1,28 @@
-"""The training loop (counterpart of reduced_3dgs_tpu/train.py:26-178).
+"""Training CLI and loop (counterpart of reduced_3dgs_tpu/train.py:26-256).
+
+Usage: python -m reduced_3dgs_torch.train -s <colmap_dir> -d <out_dir>
+           [--mode densify-pruning-shculling] [--quantize] [--with_scale_reg]
+           [-i 30000] [-l <ply>] [-o key=value ...] [--device cuda]
+
+``main`` takes the JAX package's flags. It builds the dataset, the model
+(from ``-l``'s PLY, else from the COLMAP sparse points) and the mode's
+trainer (``prepare.prepare_trainer``), writes ``cfg_args`` and
+``cameras.json``, and runs ``training``. ``-o key=value`` sets any keyword
+of the trainers, the quantizer's included, parsed as a Python literal
+(else kept as a string). ``--device`` defaults to ``cuda`` and raises
+without a GPU; ``--device cpu`` runs on the CPU. ``--mesh`` (training over
+several devices) raises: ``parallel/`` is not ported yet (ROADMAP.md item
+22).
 
 ``training`` runs one trainer step per camera, in an order shuffled each
-epoch, and saves the model's PLY and the dataset's cameras.json at the
-``save_iterations`` and at the end. It reads the loss on the host only every
-``log_interval`` steps, where it prints the progress and aborts on a
-non-finite loss.
-
-Until the mode registry is ported, the entry point is a trainer driven by
-``training``. The flagship is the ``densify-pruning-shculling`` mode's
-trainer, started as a user starts it, from the COLMAP sparse points: it
-densifies (split, clone, opacity prune, opacity reset, depth supervision),
-prunes by redundancy ("mercy") and by rendered importance, and culls SH
-bands::
-
-    dataset = prepare_dataset(source, device="cuda")
-    model = colmap_init(VariableSHGaussianModel(3, device="cuda"), source)
-    trainer = SHCullingOpacityResetFullReducedDensificationTrainer(model, dataset)
-    training(dataset, model, trainer, None, out_dir,
-             iteration=30000, save_iterations=[7000, 30000])
-
-(``dataset.colmap_init``, ``combinations``; ``model.load_ply(path)``
-starts from a PLY instead, and a plain ``trainer.Trainer(model, dataset)``
-trains without events.) ``main`` and its ``--mode`` registry are not ported
-yet.
+epoch, and saves the model's PLY, the dataset's cameras.json and, with a
+quantizer, the quantized PLY at the ``save_iterations`` and at the end. It
+reads the loss on the host only every ``log_interval`` steps, where it
+prints the progress and aborts on a non-finite loss.
 """
 from __future__ import annotations
 
+import ast
 import math
 import os
 import random
@@ -34,6 +31,8 @@ from typing import List, Optional
 
 import torch
 
+from .dataset.dataset import prepare_dataset
+from .prepare import backends, modes, prepare_gaussians, prepare_trainer
 from .trainer import AbstractTrainer
 from .utils.device import resolve_device
 from .utils.math import psnr
@@ -47,6 +46,36 @@ def save_cfg_args(destination: str, sh_degree: int, source: str):
                 f"model_path={destination!r}, resolution=-1, "
                 f"sh_degree={sh_degree}, source_path={source!r}, "
                 "white_background=False)")
+
+
+def parse_options(options: List[str]) -> dict:
+    """``key=value`` strings to a dict, each value a Python literal where it
+    parses as one and the string otherwise."""
+    configs = {}
+    for o in options:
+        k, v = o.split("=", 1)
+        try:
+            configs[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            configs[k] = v
+    return configs
+
+
+def prepare_training(sh_degree: int, source: str, device, mode: str, load_ply: str = None,
+                     load_camera: str = None, load_mask: bool = True, load_depth: bool = True,
+                     backend: str = "cuda", with_scale_reg: bool = False,
+                     quantize: bool = False, load_quantized: str = None, configs=None):
+    """(dataset, model, trainer, quantizer or None), every tensor on ``device``."""
+    device = resolve_device(device)
+    dataset = prepare_dataset(source=source, device=device, load_camera=load_camera,
+                              load_mask=load_mask, load_depth=load_depth)
+    gaussians = prepare_gaussians(sh_degree=sh_degree, source=source, device=device,
+                                  trainable_camera=mode.startswith("camera-"),
+                                  load_ply=load_ply, backend=backend)
+    trainer, quantizer = prepare_trainer(gaussians=gaussians, dataset=dataset, mode=mode,
+                                         with_scale_reg=with_scale_reg, quantize=quantize,
+                                         load_quantized=load_quantized, configs=configs)
+    return dataset, gaussians, trainer, quantizer
 
 
 def training(dataset, gaussians, trainer: AbstractTrainer, quantizer, destination: str,
@@ -105,3 +134,45 @@ def training(dataset, gaussians, trainer: AbstractTrainer, quantizer, destinatio
             save(step)
     save(iteration)
     return losses
+
+
+def main(argv=None):
+    from argparse import ArgumentParser
+    parser = ArgumentParser()
+    parser.add_argument("--sh_degree", default=3, type=int)
+    parser.add_argument("--backend", choices=backends, default="cuda")
+    parser.add_argument("-s", "--source", required=True, type=str)
+    parser.add_argument("-d", "--destination", required=True, type=str)
+    parser.add_argument("-i", "--iteration", default=30000, type=int)
+    parser.add_argument("-l", "--load_ply", default=None, type=str)
+    parser.add_argument("--load_camera", default=None, type=str)
+    parser.add_argument("--quantize", action="store_true")
+    parser.add_argument("--no_image_mask", action="store_true")
+    parser.add_argument("--no_depth_data", action="store_true")
+    parser.add_argument("--with_scale_reg", action="store_true")
+    parser.add_argument("--load_quantized", default=None, type=str)
+    parser.add_argument("--mode", choices=list(modes), default="densify-pruning-shculling")
+    parser.add_argument("--save_iterations", nargs="+", type=int, default=[7000, 30000])
+    parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument("--mesh", default=None, type=str)
+    parser.add_argument("-o", "--option", default=[], action="append", type=str)
+    args = parser.parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError("--mesh: training over several devices (parallel/) is not "
+                                  "ported yet (ROADMAP.md item 22)")
+    configs = parse_options(args.option)
+    dataset, gaussians, trainer, quantizer = prepare_training(
+        sh_degree=args.sh_degree, source=args.source, device=args.device, mode=args.mode,
+        load_ply=args.load_ply, load_camera=args.load_camera,
+        load_mask=not args.no_image_mask, load_depth=not args.no_depth_data,
+        backend=args.backend, with_scale_reg=args.with_scale_reg, quantize=args.quantize,
+        load_quantized=args.load_quantized, configs=configs)
+    save_cfg_args(args.destination, args.sh_degree, args.source)
+    dataset.save_cameras(os.path.join(args.destination, "cameras.json"))
+    return training(dataset=dataset, gaussians=gaussians, trainer=trainer, quantizer=quantizer,
+                    destination=args.destination, iteration=args.iteration,
+                    save_iterations=args.save_iterations, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

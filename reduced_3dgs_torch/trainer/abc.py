@@ -4,8 +4,9 @@ reduced_3dgs_tpu/trainer/abc.py:22-73, 120-164).
 The innermost ``BaseTrainer`` is the engine: it owns the parameters, the
 Adam state and the densification statistics, and runs one step. Wrappers
 compose loss terms (``loss_pure``) and post-update hooks (``optim_step``).
-``step`` is the template: one engine update with the outermost composed
-loss, then the hook chain.
+``step`` is the template: it reads the outermost ``model`` property (the
+quantize wrapper hooks there), runs one engine update with the outermost
+composed loss, then the hook chain.
 
 Not ported: ``fires_at``, ``max_window`` and ``step_many``, which fuse
 several steps into one XLA program to amortise dispatch over the remote
@@ -58,6 +59,8 @@ class AbstractTrainer(abc.ABC):
 
     def step(self, camera) -> Tuple:
         """One training step: returns (loss, render output dict)."""
+        model = self.model  # the property read that quantize wrappers hook
+        del model
         loss, out = self.engine.update(self, camera)
         self.optim_step()
         return loss, out

@@ -227,19 +227,20 @@ class Trainer(BaseTrainer):
                  **configs):
         super().__init__(model, dataset, position_lr_init=position_lr_init, **configs)
         self.position_lr_final = position_lr_final
+        self.position_lr_delay_mult = position_lr_delay_mult
         self.position_lr_max_steps = position_lr_max_steps
         self.sh_degree_up_interval = sh_degree_up_interval
-        self._xyz_sched = get_expon_lr_func(
-            lr_init=position_lr_init * self.spatial_lr_scale,
-            lr_final=position_lr_final * self.spatial_lr_scale,
-            lr_delay_mult=position_lr_delay_mult,
-            max_steps=position_lr_max_steps)
         model.active_sh_degree = 0
 
     def xyz_lr(self) -> float:
         """The log-lerp rate at the current step (read before the step
-        counter advances, as the JAX engine reads its Adam count)."""
-        return self._xyz_sched(self._curr_step)
+        counter advances, as the JAX engine reads its Adam count), scaled
+        by the current ``spatial_lr_scale``, which a checkpoint may set."""
+        return get_expon_lr_func(
+            lr_init=self.position_lr_init * self.spatial_lr_scale,
+            lr_final=self.position_lr_final * self.spatial_lr_scale,
+            lr_delay_mult=self.position_lr_delay_mult,
+            max_steps=self.position_lr_max_steps)(self._curr_step)
 
     def maybe_advance_schedules(self):
         if (self._curr_step > 0

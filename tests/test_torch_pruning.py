@@ -208,13 +208,25 @@ RUN_CONFIG = dict(
 
 
 def _layers(trainer):
-    """(DensificationTrainer, BasePruner, SplitCloneDensifier) of the flagship."""
-    dt = trainer.base_trainer.base_trainer.base_trainer
+    """(DensificationTrainer, BasePruner, SplitCloneDensifier) of the flagship
+    (under any wrappers over it)."""
+    dt = trainer
+    while not hasattr(dt, "densifier"):
+        dt = dt.base_trainer
     return dt, dt.densifier, dt.densifier.base_densifier
 
 
-@pytest.fixture(scope="module")
-def run():
+def _flagship(package):
+    def build(model, dataset):
+        return package.SHCullingOpacityResetFullReducedDensificationTrainer(model, dataset,
+                                                                           **RUN_CONFIG)
+    return build
+
+
+def flagship_run(jax_build=_flagship(jcomb), torch_build=_flagship(tcomb)):
+    """The toy run in both packages: JAX step by step, then the port fed
+    the JAX draw, with each decision's inputs recorded. ``jax_build`` and
+    ``torch_build`` make each package's trainer from (model, dataset)."""
     params, degrees, cams, images, depths = toy_scene(with_depth=True)
     depths = [depths[0], None, None]
     order = [i % 3 for i in range(RUN_STEPS)]
@@ -223,7 +235,7 @@ def run():
     # removal mask.
     jm = jax_model(params, degrees)
     jds = jax_dataset(cams, images, depths)
-    jtr = jcomb.SHCullingOpacityResetFullReducedDensificationTrainer(jm, jds, **RUN_CONFIG)
+    jtr = jax_build(jm, jds)
     j_dt, _, j_split = _layers(jtr)
     capacity, j_masks, j_mercy = {}, {}, {}
     j_split_fn, j_apply = j_split.densify_and_prune, j_dt.apply_instruction
@@ -260,7 +272,7 @@ def run():
     # The port, fed the JAX draw, with each decision's inputs recorded.
     tm = torch_model(params, degrees)
     tds = torch_dataset(cams, images, depths)
-    ttr = tcomb.SHCullingOpacityResetFullReducedDensificationTrainer(tm, tds, **RUN_CONFIG)
+    ttr = torch_build(tm, tds)
     t_dt, t_pruner, t_split = _layers(ttr)
     k = t_split.densify_n_split
     t_split.draw_samples = lambda n, step: _jax_draw(capacity[step], step, n, k)
@@ -306,9 +318,18 @@ def run():
         rec["cull"].append(stats)
         return stats
 
+    t_forward = ttr.engine.forward_loss
+
+    def t_record_forward(loss_fn, camera, extras):
+        with torch.no_grad():
+            pre = common.preprocess(*tm.render_array_args(), tm.render_settings(camera))
+        rec["depth"].append((pre.depths, pre.rect_min, pre.rect_max, pre.tiles_touched > 0))
+        return t_forward(loss_fn, camera, extras)
+
     t_split.densify_and_prune = t_record_split
     t_pruner.prune = t_record_prune
     t_dt.apply_instruction = t_record_apply
+    ttr.engine.forward_loss = t_record_forward
     mp = pytest.MonkeyPatch()
     mp.setattr(tp, "mercy_gaussians", t_record_mercy)
     mp.setattr(timp, "prune_list", t_record_prune_list)
@@ -316,11 +337,7 @@ def run():
     t_losses, t_n, t_deg = [], [], {}
     try:
         for it in range(RUN_STEPS):
-            cam = tds[order[it]]
-            with torch.no_grad():
-                pre = common.preprocess(*tm.render_array_args(), tm.render_settings(cam))
-            rec["depth"].append((pre.depths, pre.rect_min, pre.rect_max, pre.tiles_touched > 0))
-            t_losses.append(float(ttr.step(cam)[0]))
+            t_losses.append(float(ttr.step(tds[order[it]])[0]))
             t_n.append(tm.num_points)
             t_deg[it + 1] = tm._degrees.clone().numpy()
     finally:
@@ -330,7 +347,12 @@ def run():
                 k=k, split=t_split, pruner=t_pruner)
 
 
-def test_flagship_decisions_have_margins(run):
+@pytest.fixture(scope="module")
+def run():
+    return flagship_run()
+
+
+def check_decision_margins(run):
     """The split, the opacity prune, the mercy event (quadratic forms, KNN
     k-th against (k+1)-th distance, counts against the threshold,
     opacities against the median), the importance scores, the SH cull's
@@ -389,6 +411,10 @@ def test_flagship_decisions_have_margins(run):
         assert_decision_margin(distances.numpy()[:, band], RUN_CONFIG["cdist_threshold"])
 
 
+def test_flagship_decisions_have_margins(run):
+    check_decision_margins(run)
+
+
 def test_flagship_events(run):
     """Every event happens, and N moves at each by the appended rows minus
     the OR of the removal masks; the mercy mask is not empty."""
@@ -411,7 +437,7 @@ def test_flagship_events(run):
     assert all(v.shape[0] == t_n[-1] for t in state.values() for v in t.values())
 
 
-def test_flagship_masks_and_row_counts_match_jax(run):
+def check_masks_and_row_counts(run):
     assert run["t_n"] == run["j_n"]
     assert sorted(run["rec"]["masks"]) == sorted(run["j_masks"])
     for step, mask in run["rec"]["masks"].items():
@@ -423,7 +449,11 @@ def test_flagship_masks_and_row_counts_match_jax(run):
         np.testing.assert_array_equal(run["t_deg"][step], deg, err_msg=f"step {step}")
 
 
-def test_flagship_losses_and_state_match_jax(run):
+def test_flagship_masks_and_row_counts_match_jax(run):
+    check_masks_and_row_counts(run)
+
+
+def check_losses_and_state(run):
     np.testing.assert_allclose(run["t_losses"], run["j_losses"], rtol=1e-4)
     n, j = _jax_live(run["jtr"])
     t = run["ttr"].engine.state_trees()
@@ -433,3 +463,7 @@ def test_flagship_losses_and_state_match_jax(run):
             assert v.shape == jv.shape, (group, name)
             np.testing.assert_allclose(v.numpy(), jv, rtol=1e-3, atol=1e-6 * np.abs(jv).max(),
                                        err_msg=f"{group}/{name}")
+
+
+def test_flagship_losses_and_state_match_jax(run):
+    check_losses_and_state(run)
