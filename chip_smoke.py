@@ -70,6 +70,16 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            with their launch counts and the size ratio; (e) a Trainer's
            checkpoint after 20 steps, loaded into a fresh trainer, and 5 more
            steps on both
+  phase 11 trainable cameras: (a) train.main --mode
+           camera-densify-pruning-shculling for 30 steps on phase 9's views,
+           start and schedule, with the launch counts (which the kernels line
+           reports), N, the median ordinary step beside phase 9's, one step's
+           idle share under torch.profiler and each view's learned pose; (b)
+           one step's camera gradient on the card against the CPU on the
+           20,000 Gaussians of smallest x; (c) render.main --load_camera of
+           the run's cameras.json and PLY, its renders against the trainer's
+           adjusted cameras'; (d) render_packed of the trained SH-culled
+           model against its dense render; (e) mark_visible's count per view
 
 Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
@@ -169,6 +179,14 @@ MAX_QUANTIZED_SIZE_RATIO = 0.2
 CKPT_STEPS, CKPT_MORE_STEPS = 20, 5
 TOL_CKPT_LOSS_REL = 1e-5
 TOL_CKPT_RTOL, TOL_CKPT_ATOL = 2e-3, 3e-5
+# Phase 11: the camera flagship (train.main --mode
+# camera-densify-pruning-shculling) on phase 9's views, start and schedule;
+# its camera gradient on the card against the CPU at the JAX package's
+# gradient bars (rtol 2e-3, atol 3e-5 of max|g|), on the MERCY_SUBSET
+# Gaussians of smallest x; the learned poses read back and the packed-SH
+# model within the forward compositor's colour bar (TOL_COLOR).
+CAMERA_MODE = "camera-densify-pruning-shculling"
+GCAM_RTOL, GCAM_ATOL = 2e-3, 3e-5
 # Box sizes tried on the first mercy event's model when the default removes
 # nothing.
 MERCY_FIRE_BOXES = (2.0, 4.0, 8.0, 16.0)
@@ -1077,8 +1095,8 @@ def mercy_phase(card, params, poses):
 def flagship_phase(card, params_p, src, wrappers, tmp, dense_config):
     """Phase 9 (d): train.training() with the flagship trainer for
     FLAGSHIP_STEPS steps from phase 8's start and calibration; checks every
-    event's N bookkeeping, the mercy event and the launch counts, which it
-    returns."""
+    event's N bookkeeping, the mercy event and the launch counts. Returns
+    the launch counts and the median ordinary step in ms."""
     from reduced_3dgs_torch.combinations import (
         SHCullingOpacityResetFullReducedDensificationTrainer)
     from reduced_3dgs_torch.dataset.dataset import prepare_dataset
@@ -1206,7 +1224,7 @@ def flagship_phase(card, params_p, src, wrappers, tmp, dense_config):
         failures.append(f"per-Gaussian tensors have rows {sorted(rows)}")
     if failures:
         raise AssertionError("phase 9: " + "; ".join(failures))
-    return launches
+    return launches, ordinary
 
 
 def argmin_margin(x, centers):
@@ -1530,6 +1548,232 @@ def checkpoint_phase(card, params_p, src, tmp):
         failures.append(f"losses differ by {loss_rel:.3e} (relative)")
     if failures:
         raise AssertionError("phase 10 checkpoint: " + "; ".join(failures))
+
+
+def camera_gradient(trainer, camera):
+    """One step of a camera trainer on `camera`; the camera gradient it
+    consumed (rot and trans, as float64 on the CPU)."""
+    grads = []
+    adjust = trainer.camera_adjustment
+
+    def capturing(cam):
+        params, apply, consume = adjust(cam)
+
+        def keep(g):
+            grads.append({k: v.detach().double().cpu() for k, v in g.items()})
+            return consume(g)
+
+        return params, apply, keep
+
+    trainer.camera_adjustment = capturing
+    try:
+        trainer.step(camera)
+    finally:
+        del trainer.camera_adjustment
+    (g,) = grads
+    return g
+
+
+def camera_phase(card, params_p, src, wrappers, tmp, dense_config, flagship_ms):
+    """Phase 11: (a) train.main --mode camera-densify-pruning-shculling for
+    FLAGSHIP_STEPS steps (phase 9's views, depths, start and schedule as -o
+    options), with the launch counts, N, the step times and each view's
+    learned pose (and, at the end, one more step's idle share under
+    torch.profiler); (b) one step's
+    camera gradient on the card against the CPU, on one view and the
+    MERCY_SUBSET Gaussians of smallest x, from view 0's learned delta and
+    Adam state; (c) render.main --load_camera of the run's cameras.json and
+    PLY, and its cameras' renders against the trainer's adjusted cameras';
+    (d) render_packed of the trained SH-culled model against its dense
+    render; (e) mark_visible's count per view against the CPU's. Returns
+    the launch counts of (a)."""
+    from reduced_3dgs_torch import render, train
+    from reduced_3dgs_torch.models.packed_sh import pack_variable_sh, render_packed
+    from reduced_3dgs_torch.ops.rasterize.common import mark_visible
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    from reduced_3dgs_torch.trainer import AbstractTrainer, CameraTrainerWrapper, Trainer
+    from reduced_3dgs_torch.utils.math import psnr
+    dev = torch.device("cuda")
+    failures = []
+
+    # (a) the camera flagship through its entry point.
+    start_ply = os.path.join(tmp, "camera_start", "point_cloud.ply")
+    VariableSHGaussianModel(3, device=dev).load_numpy(params_p).save_ply(start_ply)
+    config = dict(FLAGSHIP_CONFIG, **{k: dense_config[k] for k in (
+        "densify_grad_threshold", "densify_percent_dense", "prune_percent_too_big")})
+    out = os.path.join(tmp, "camera_flagship")
+    argv = ["-s", src, "-d", out, "-i", str(FLAGSHIP_STEPS), "-l", start_ply,
+            "--mode", CAMERA_MODE]
+    for k, v in config.items():
+        argv += ["-o", f"{k}={v!r}"]
+    runs, step_times = [], {}
+    training, step = train.training, AbstractTrainer.step
+
+    def keep(**kwargs):
+        runs.append(kwargs)
+        return training(**kwargs)
+
+    def timed_step(self, camera):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = step(self, camera)
+        end.record()
+        step_times[self.curr_step] = (start, end)
+        return result
+
+    train.training, AbstractTrainer.step = keep, timed_step
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        losses = train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        train.training, AbstractTrainer.step = training, step
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    (run,) = runs
+    trainer, dataset, model = run["trainer"], run["dataset"], run["gaussians"]
+    values = torch.stack(losses).cpu().tolist()
+    ms = {s: a.elapsed_time(b) for s, (a, b) in step_times.items()}
+    event_steps = sorted(set(F_SPLIT + F_PRUNE + F_IMPORTANCE + F_CULL + F_RESET))
+    ordinary = statistics.median(t for s, t in ms.items() if s not in event_steps)
+    poses = []
+    for cam in dataset:
+        p = trainer._cam_params[id(cam)]
+        q = p["rot"].detach().double().cpu()
+        angle = 2.0 * math.acos(min(1.0, abs(float(q[0])) / float(q.norm())))
+        poses.append((float(p["trans"].detach().double().norm()), angle))
+    log(f"phase 11 [{card}]: train.main --mode {CAMERA_MODE}, {FLAGSHIP_STEPS} steps in "
+        f"{wall:.2f} s; {type(trainer).__name__} over {type(trainer.base_trainer).__name__}, "
+        f"{type(dataset).__name__}, {type(model).__name__}; N {N_GAUSSIANS} -> "
+        f"{model.num_points}; median ordinary step {ordinary:.4f} ms against the flagship's "
+        f"{flagship_ms:.4f} ms (phase 9, same call); event steps "
+        + ", ".join(f"{s} {ms[s] / ordinary:.2f}x" for s in event_steps)
+        + f"; losses {values}; launches {launches}; learned pose per view (|trans|, rotation "
+        f"angle in rad) {poses}")
+    expected = {"composite_fwd": FLAGSHIP_STEPS, "composite_bwd": FLAGSHIP_STEPS,
+                "composite_fwd_stats": N_VIEWS * (len(F_IMPORTANCE) + 2 * len(F_CULL))}
+    if launches != expected:
+        failures.append(f"train.main --mode {CAMERA_MODE} launched {launches}, expected "
+                        f"{expected}")
+    if len(values) != FLAGSHIP_STEPS or not all(map(math.isfinite, values)):
+        failures.append(f"losses are not all finite: {values}")
+    if len(poses) != N_VIEWS or not all(math.isfinite(t) and math.isfinite(a) and t > 0 and a > 0
+                                        for t, a in poses):
+        failures.append(f"learned poses {poses}")
+    # The poses the run saved; (c) reads them back.
+    adjusted = [trainer.adjusted_camera(cam) for cam in dataset]
+
+    # (b) the camera gradient on the card against the CPU.
+    view = 0
+    key = id(dataset[view])
+    slot = ({view: {k: v.detach().cpu().numpy() for k, v in trainer._cam_params[key].items()}},
+            {view: {"count": trainer._cam_adam[key].count,
+                    "m": {k: v.cpu().numpy() for k, v in trainer._cam_adam[key].m.items()},
+                    "v": {k: v.cpu().numpy() for k, v in trainer._cam_adam[key].v.items()}}})
+    subset = np.argsort(params_p["xyz"][:, 0], kind="stable")[:MERCY_SUBSET]
+    sub = {k: v[subset] for k, v in params_p.items()}
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        views = render.prepare_dataset(src, device=where)
+        m = VariableSHGaussianModel(3, device=where).load_numpy(sub)
+        t = CameraTrainerWrapper(Trainer, m, views).load_numpy(*slot)
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        grads.append(camera_gradient(t, views[view]))
+        step_s = time.perf_counter() - t0
+        counts = {n: fn.launches for n, fn in wrappers.items()}
+        log(f"phase 11 [{card}]: camera gradient on {where} in {step_s:.2f} s, launches "
+            f"{counts}")
+        if where.type == "cuda" and counts != {"composite_fwd": 1, "composite_fwd_stats": 0,
+                                               "composite_bwd": 1}:
+            failures.append("the card's camera step did not launch B1 and B3 once each")
+    gk, gc = (torch.cat([g["rot"], g["trans"]]) for g in grads)
+    scale = float(gc.abs().max())
+    excess = (gk - gc).abs() - (GCAM_ATOL * scale + GCAM_RTOL * gc.abs())
+    log(f"phase 11 [{card}]: camera gradient (rot w x y z, trans x y z) of view {view} at "
+        f"{MERCY_SUBSET} Gaussians: card {gk.tolist()}, CPU {gc.tolist()}; max |difference| "
+        f"{float((gk - gc).abs().max()):.3e} (bars rtol {GCAM_RTOL}, atol {GCAM_ATOL} x "
+        f"max|g| {scale:.3e})")
+    if not scale > 0 or bool((excess > 0).any()):
+        failures.append("the card's camera gradient disagrees with the CPU's")
+
+    # (c) render.main --load_camera of the learned poses.
+    it = str(FLAGSHIP_STEPS)
+    cams_json = os.path.join(out, "cameras.json")
+    for fn in wrappers.values():
+        fn.launches = 0
+    render.main(["-s", src, "-d", out, "-i", it, "--no_save_images", "--load_camera",
+                 cams_json])
+    torch.cuda.synchronize()
+    render_launches = {n: fn.launches for n, fn in wrappers.items()}
+    with open(os.path.join(out, "metrics.json")) as f:
+        got = [m["psnr"] for m in json.load(f)["per_image"]]
+    trained = VariableSHGaussianModel(3, device=dev).load_ply(
+        os.path.join(out, "point_cloud", f"iteration_{it}", "point_cloud.ply"))
+    loaded = render.prepare_dataset(src, load_camera=cams_json)
+    want, start_psnr, err = [], [], 0.0
+    with torch.no_grad():
+        for cam, moved, back in zip(dataset, adjusted, loaded):
+            img = trained(moved)["render"]
+            err = max(err, float((trained(back)["render"] - img).abs().max()))
+            want.append(float(psnr(img, cam.ground_truth_image).mean()))
+            start_psnr.append(float(psnr(trained(cam)["render"], cam.ground_truth_image).mean()))
+    log(f"phase 11 [{card}]: render.main --load_camera: psnr {got} (the trainer's adjusted "
+        f"cameras {want}; the start poses {start_psnr}); max |render from the loaded cameras - "
+        f"render from the adjusted ones| {err:.3e} (bar {TOL_COLOR}); launches {render_launches}")
+    if render_launches != {"composite_fwd": N_VIEWS, "composite_fwd_stats": 0,
+                           "composite_bwd": 0}:
+        failures.append(f"render.main --load_camera launched {render_launches}")
+    if not err <= TOL_COLOR or not all(abs(a - b) <= 1e-3 for a, b in zip(got, want)):
+        failures.append(f"the loaded poses render {err} from the adjusted ones")
+
+    # (d) the packed SH model against the dense render.
+    with torch.no_grad():
+        packed = pack_variable_sh({k: v.detach() for k, v in model.param_dict().items()},
+                                  model._degrees)
+        for fn in wrappers.values():
+            fn.launches = 0
+        packed_imgs = [render_packed(packed, cam)["render"] for cam in dataset]
+        torch.cuda.synchronize()
+        packed_launches = {n: fn.launches for n, fn in wrappers.items()}
+        packed_err = max(float((p - model(cam)["render"]).abs().max())
+                         for p, cam in zip(packed_imgs, dataset))
+    rows = packed["features_rest_packed"].shape[0]
+    log(f"phase 11 [{card}]: render_packed of the trained model (degrees 0-3 "
+        f"{packed['group_counts']}): {rows} rest rows against {15 * model.num_points} dense "
+        f"(ratio {rows / (15 * model.num_points):.6f}); max |packed - dense render| "
+        f"{packed_err:.3e} (bar {TOL_COLOR}); launches {packed_launches}")
+    if packed_launches != {"composite_fwd": N_VIEWS, "composite_fwd_stats": 0,
+                           "composite_bwd": 0}:
+        failures.append(f"render_packed launched {packed_launches}")
+    if not packed_err <= TOL_COLOR or not rows < 15 * model.num_points:
+        failures.append(f"the packed model renders {packed_err} from the dense one")
+
+    # (e) mark_visible.
+    xyz_cpu = model._xyz.detach().cpu()
+    visible = [int(model.mark_visible(cam).sum()) for cam in dataset]
+    visible_cpu = [int(mark_visible(xyz_cpu, cam.world_view_transform.cpu()).sum())
+                   for cam in dataset]
+    log(f"phase 11: mark_visible per view {visible} of {model.num_points} (CPU {visible_cpu})")
+    if visible != visible_cpu or not all(0 < v <= model.num_points for v in visible):
+        failures.append(f"mark_visible counts {visible}, CPU {visible_cpu}")
+
+    # Last, as it trains on: one more camera flagship step under the profiler.
+    n_launch, busy_ms, busy_wall_ms, top, _ = device_busy(lambda: trainer.step(dataset[0]))
+    if busy_ms > 0:
+        log(f"phase 11 [{card}]: one camera flagship step under torch.profiler: {n_launch:.0f} "
+            f"device kernels and copies, device busy {busy_ms:.4f} ms of {busy_wall_ms:.4f} ms "
+            f"wall (idle share {1 - busy_ms / busy_wall_ms:.4f}); top: "
+            + "; ".join(f"{k} x{c} {t:.4f} ms" for k, c, t in top))
+    else:
+        log("phase 11: the camera step's idle share not measured (the profiler saw no device "
+            "time)")
+    if failures:
+        raise AssertionError("phase 11: " + "; ".join(failures))
+    return launches
 
 
 def card_name():
@@ -1990,7 +2234,9 @@ def run(tmp):
     colmap_init_phase(card, params, tmp)
     mercy_phase(card, params, poses)
     torch.cuda.empty_cache()
-    flagship_launches = flagship_phase(card, params_p, src, wrappers, tmp, dense_config)
+    flagship_launches, flagship_ms = flagship_phase(card, params_p, src, wrappers, tmp,
+                                                    dense_config)
+    log(f"phase 9: flagship launches {flagship_launches}")
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- phase 10
@@ -2000,6 +2246,13 @@ def run(tmp):
     quantize_cli_phase(card, params_p, src, wrappers, tmp, dense_config)
     torch.cuda.empty_cache()
     checkpoint_phase(card, params_p, src, tmp)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 11
+    t0 = time.perf_counter()
+    camera_launches = camera_phase(card, params_p, src, wrappers, tmp, dense_config,
+                                   flagship_ms)
+    log(f"phase 11 [{card}]: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
@@ -2007,7 +2260,7 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_fwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:300",
-        "launches": flagship_launches["composite_fwd"],
+        "launches": camera_launches["composite_fwd"],
         "max_abs_err": bench["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2019,7 +2272,7 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_fwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:300",
-        "launches": flagship_launches["composite_fwd_stats"],
+        "launches": camera_launches["composite_fwd_stats"],
         "max_abs_err": stats_max_abs_err,
         "ms": stats_ms,
         "plain_ms": stats_plain_ms,
@@ -2031,7 +2284,7 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_bwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:502",
-        "launches": flagship_launches["composite_bwd"],
+        "launches": camera_launches["composite_bwd"],
         "max_abs_err": bwd_max_abs_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

@@ -21,8 +21,10 @@ for layer:
 densifier chain runs first (inside ``DensificationTrainer.optim_step``;
 within it the importance prune, then split and clone, then the opacity and
 mercy prune, their masks ORed over the rows before the event), then the
-opacity reset, then the SH cull. ``prepare.modes`` maps each mode to its
-trainer here; the camera compositions are not ported yet.
+opacity reset, then the SH cull. The eight ``Camera*`` compositions are
+``CameraTrainerWrapper`` over the composition of the same name without the
+prefix; the five ``camera-*`` modes use five of them. ``prepare.modes``
+maps each mode to its trainer here.
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ from functools import partial
 
 from .importance import ImportancePruningDensifierWrapper
 from .pruning import PruningDensifierWrapper, ReducedDensificationDensifierWrapper
-from .shculling import SHCullingTrainerWrapper, VariableSHGaussianModel
-from .trainer import (DensificationTrainer, DepthTrainerWrapper, NoopDensifier,
-                      OpacityResetDensificationTrainer, OpacityResetTrainerWrapper)
+from .shculling import SHCullingTrainer, SHCullingTrainerWrapper, VariableSHGaussianModel
+from .trainer import (CameraTrainerWrapper, DensificationTrainer, DepthTrainerWrapper,
+                      NoopDensifier, OpacityResetDensificationTrainer,
+                      OpacityResetTrainerWrapper)
 
 
 def _noop(model, dataset, **configs):
@@ -120,3 +123,41 @@ def SHCullingOpacityResetFullReducedDensificationTrainer(model: VariableSHGaussi
                                                          dataset, **configs):
     return SHCullingTrainerWrapper(OpacityResetFullReducedDensificationTrainer, model,
                                    dataset, **configs)
+
+
+# --- trainable cameras over them --------------------------------------------
+
+def CameraSHCullingTrainer(model, dataset, **configs):
+    return CameraTrainerWrapper(SHCullingTrainer, model, dataset, **configs)
+
+
+def CameraFullPruningTrainer(model, dataset, **configs):
+    return CameraTrainerWrapper(FullPruningTrainer, model, dataset, **configs)
+
+
+def CameraFullReducedDensificationTrainer(model, dataset, **configs):
+    return CameraTrainerWrapper(FullReducedDensificationTrainer, model, dataset, **configs)
+
+
+def CameraOpacityResetFullReducedDensificationTrainer(model, dataset, **configs):
+    return CameraTrainerWrapper(OpacityResetFullReducedDensificationTrainer, model, dataset,
+                                **configs)
+
+
+def CameraSHCullingOpacityResetDensificationTrainer(model, dataset, **configs):
+    return CameraTrainerWrapper(SHCullingOpacityResetDensificationTrainer, model, dataset,
+                                **configs)
+
+
+def CameraSHCullingFullPruningTrainer(model, dataset, **configs):
+    return CameraTrainerWrapper(SHCullingFullPruningTrainer, model, dataset, **configs)
+
+
+def CameraSHCullingFullReducedDensificationTrainer(model, dataset, **configs):
+    return CameraTrainerWrapper(SHCullingFullReducedDensificationTrainer, model, dataset,
+                                **configs)
+
+
+def CameraSHCullingOpacityResetFullReducedDensificationTrainer(model, dataset, **configs):
+    return CameraTrainerWrapper(SHCullingOpacityResetFullReducedDensificationTrainer, model,
+                                dataset, **configs)

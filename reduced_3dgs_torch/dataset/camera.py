@@ -1,7 +1,9 @@
 """Camera record and constructors (counterpart of
 reduced_3dgs_tpu/dataset/camera.py:20-128).
 
-Matrices are stored in the row-vector convention of ops/projection.py.
+Matrices are stored in the row-vector convention of ops/projection.py. A
+camera also keeps its projection matrix (``full_proj = world_view @
+projection_matrix``), which the camera trainer applies to a learned pose.
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ class Camera:
     ground_truth_image: Optional[torch.Tensor] = None       # [3,H,W]
     ground_truth_image_mask: Optional[torch.Tensor] = None  # [1,H,W]
     ground_truth_depth: Optional[torch.Tensor] = None       # [H,W]
+    projection_matrix: Optional[torch.Tensor] = None        # [4,4] row-vector
 
 
-def _as_tensor(x, device) -> Optional[torch.Tensor]:
+def as_tensor(x, device) -> Optional[torch.Tensor]:
     if x is None:
         return None
     # np.array copies: a read-only source array cannot back a tensor.
@@ -47,8 +50,8 @@ def build_camera(image_height: int, image_width: int, FoVx: float, FoVy: float,
                  device="cuda") -> Camera:
     """Camera with its derived transforms, every tensor on ``device``."""
     device = torch.device(device)
-    R = torch.eye(3, device=device) if R is None else _as_tensor(R, device)
-    T = torch.zeros(3, device=device) if T is None else _as_tensor(T, device)
+    R = torch.eye(3, device=device) if R is None else as_tensor(R, device)
+    T = torch.zeros(3, device=device) if T is None else as_tensor(T, device)
     world_view = proj.world_view_transform_from_rt(R, T)
     projm = proj.build_projection_matrix(znear, zfar, float(FoVx), float(FoVy), device=device)
     return Camera(
@@ -60,10 +63,11 @@ def build_camera(image_height: int, image_width: int, FoVx: float, FoVy: float,
         world_view_transform=world_view,
         full_proj_transform=world_view @ projm,
         camera_center=proj.camera_center_from_world_view(world_view),
-        bg_color=_as_tensor(bg_color, device),
-        ground_truth_image=_as_tensor(ground_truth_image, device),
-        ground_truth_image_mask=_as_tensor(ground_truth_image_mask, device),
-        ground_truth_depth=_as_tensor(ground_truth_depth, device),
+        bg_color=as_tensor(bg_color, device),
+        ground_truth_image=as_tensor(ground_truth_image, device),
+        ground_truth_image_mask=as_tensor(ground_truth_image_mask, device),
+        ground_truth_depth=as_tensor(ground_truth_depth, device),
+        projection_matrix=projm,
     )
 
 

@@ -1,2 +1,2 @@
-from . import ply  # noqa: F401
-from .gaussian_model import GaussianModel  # noqa: F401
+from . import packed_sh, ply  # noqa: F401
+from .gaussian_model import CameraTrainableGaussianModel, GaussianModel  # noqa: F401

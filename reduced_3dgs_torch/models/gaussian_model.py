@@ -9,7 +9,8 @@ mean2d_offset_ndc)`` is the same render with the trainer's screen-space
 offset; both are differentiable in the parameters unless ``with_stats``.
 ``render`` also renders from explicit parameters and degrees that are not
 the model's own (the JAX model's functional ``render(params, camera,
-aux)``), which SH culling needs. PLY files use the
+aux)``), which SH culling needs. ``mark_visible`` is the near-plane test
+of each centre. PLY files use the
 standard 3DGS layout, so the JAX package reads what this writes and the
 other way round.
 """
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 
 from ..dataset.camera import Camera
-from ..ops.rasterize.common import RenderSettings
+from ..ops.rasterize.common import RenderSettings, mark_visible
 from ..ops.rasterize.tiled import render_tiled
 from ..utils.device import resolve_device
 from . import ply as plyio
@@ -36,6 +37,23 @@ PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "op
 def normalized_rotation(rot: torch.Tensor) -> torch.Tensor:
     """q * rsqrt(|q|^2 + 1e-24): finite value and gradient at q = 0."""
     return rot * torch.rsqrt(torch.sum(rot * rot, dim=-1, keepdim=True) + 1e-24)
+
+
+def camera_settings(camera: Camera, scale_modifier: float = 1.0,
+                    sh_degree: int = 3) -> RenderSettings:
+    """The rasterization settings of ``camera``."""
+    return RenderSettings(
+        image_height=camera.image_height,
+        image_width=camera.image_width,
+        tanfovx=math.tan(camera.FoVx * 0.5),
+        tanfovy=math.tan(camera.FoVy * 0.5),
+        bg=camera.bg_color,
+        scale_modifier=scale_modifier,
+        viewmatrix=camera.world_view_transform,
+        projmatrix=camera.full_proj_transform,
+        campos=camera.camera_center,
+        sh_degree=sh_degree,
+    )
 
 
 class GaussianModel(nn.Module):
@@ -144,18 +162,7 @@ class GaussianModel(nn.Module):
 
     # --- rendering ----------------------------------------------------------
     def render_settings(self, camera: Camera) -> RenderSettings:
-        return RenderSettings(
-            image_height=camera.image_height,
-            image_width=camera.image_width,
-            tanfovx=math.tan(camera.FoVx * 0.5),
-            tanfovy=math.tan(camera.FoVy * 0.5),
-            bg=camera.bg_color,
-            scale_modifier=self.scale_modifier,
-            viewmatrix=camera.world_view_transform,
-            projmatrix=camera.full_proj_transform,
-            campos=camera.camera_center,
-            sh_degree=self.active_sh_degree,
-        )
+        return camera_settings(camera, self.scale_modifier, self.active_sh_degree)
 
     def render_array_args(self, params: Optional[Dict[str, torch.Tensor]] = None,
                           degrees: Optional[torch.Tensor] = None):
@@ -184,6 +191,10 @@ class GaussianModel(nn.Module):
         return render_tiled(*self.render_array_args(params, degrees),
                             self.render_settings(camera),
                             mean2d_offset_ndc=mean2d_offset_ndc, with_stats=with_stats)
+
+    def mark_visible(self, camera: Camera) -> torch.Tensor:
+        """[N] bool: each centre in front of the camera's near plane."""
+        return mark_visible(self._xyz.detach(), camera.world_view_transform)
 
     # --- PLY I/O (standard 3DGS layout) -------------------------------------
     def ply_arrays(self):
@@ -238,3 +249,9 @@ class GaussianModel(nn.Module):
             scaling=np.stack([v[f"scale_{i}"] for i in range(3)], axis=1),
             rotation=np.stack([v[f"rot_{i}"] for i in range(4)], axis=1))
         return self.load_numpy(params)
+
+
+class CameraTrainableGaussianModel(GaussianModel):
+    """The model of the ``camera-*`` modes. Every render differentiates
+    through the camera's matrices already, so the class only marks the
+    model, as the JAX package's registry does."""

@@ -6,7 +6,10 @@ Gaussian and bins it to tiles. The semantics are the CUDA rasterizer's:
 near cull at view z 0.2, the opacity sigmoid applied here, radii by the
 3-sigma rule, and SH colour with the +0.5 offset and positive clamp. Tiles
 are binned with the alpha-contour box, which is never wider than the
-3-sigma rectangle.
+3-sigma rectangle. ``colors_precomp`` replaces the SH colour with given
+colours, used as they are (no offset, no clamp), as the packed-SH render
+does. ``mark_visible`` is the rasterizer's frustum test, which reduces to
+the near cull.
 """
 from __future__ import annotations
 
@@ -55,7 +58,8 @@ def tile_grid(settings: RenderSettings):
 def preprocess(means3d: torch.Tensor, opacities_raw: torch.Tensor,
                scales: torch.Tensor, rotations: torch.Tensor,
                shs: torch.Tensor, settings: RenderSettings,
-               mean2d_offset_ndc: Optional[torch.Tensor] = None) -> PreprocessedGaussians:
+               mean2d_offset_ndc: Optional[torch.Tensor] = None,
+               colors_precomp: Optional[torch.Tensor] = None) -> PreprocessedGaussians:
     """Screen-space quantities of N Gaussians.
 
     Args: means3d [N,3]; opacities_raw [N] or [N,1] opacity logits; scales
@@ -63,7 +67,8 @@ def preprocess(means3d: torch.Tensor, opacities_raw: torch.Tensor,
     SH coefficients; mean2d_offset_ndc [N,2] (zeros), added to the
     projected NDC xy before ``ndc2pix``, so its gradient is the screen-space
     gradient in the reference's (0.5 W, 0.5 H) scaling, which the densifier
-    accumulates. Every row is alive: the port keeps no capacity padding, so
+    accumulates. ``colors_precomp`` [N,3], when given, is the colour and
+    ``shs`` is not read. Every row is alive: the port keeps no capacity padding, so
     the JAX function's ``alive`` mask is not ported."""
     H, W = settings.image_height, settings.image_width
     tiles_x, tiles_y = tile_grid(settings)
@@ -106,8 +111,11 @@ def preprocess(means3d: torch.Tensor, opacities_raw: torch.Tensor,
     rect_wh = torch.clamp(rect_max - rect_min, min=0)
     tiles = (rect_wh[..., 0] * rect_wh[..., 1]).to(torch.int32)
 
-    dirs = sh_ops.normalize_dirs(means3d - settings.campos)
-    rgb = sh_ops.eval_sh(shs, dirs, settings.sh_degree, clamp=True)
+    if colors_precomp is None:
+        dirs = sh_ops.normalize_dirs(means3d - settings.campos)
+        rgb = sh_ops.eval_sh(shs, dirs, settings.sh_degree, clamp=True)
+    else:
+        rgb = colors_precomp
 
     radii = torch.where(visible, radius, torch.zeros_like(radius)).to(torch.int32)
     tiles_touched = torch.where(visible, tiles, torch.zeros_like(tiles))
@@ -122,6 +130,13 @@ def preprocess(means3d: torch.Tensor, opacities_raw: torch.Tensor,
         rect_max=rect_max,
         tiles_touched=tiles_touched,
     )
+
+
+def mark_visible(means3d: torch.Tensor, viewmatrix: torch.Tensor) -> torch.Tensor:
+    """[N] bool: view-space z > NEAR_CULL_Z. The CUDA rasterizer's
+    ``in_frustum`` also computes NDC coordinates but decides on this test
+    alone."""
+    return proj.world_to_view(means3d, viewmatrix)[..., 2] > config.NEAR_CULL_Z
 
 
 def pixel_centers(height: int, width: int, device=None) -> torch.Tensor:

@@ -75,10 +75,11 @@ def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
 
 def render_tiled(means3d, opacities_raw, scales, rotations, shs,
                  settings: RenderSettings, mean2d_offset_ndc=None,
-                 with_stats: bool = False) -> dict:
+                 with_stats: bool = False, colors_precomp=None) -> dict:
     """Render an image through the tiled pipeline; differentiable in every
-    float input unless ``with_stats``. ``mean2d_offset_ndc`` goes to
-    ``preprocess``.
+    float input unless ``with_stats``. ``mean2d_offset_ndc`` and
+    ``colors_precomp`` (the colours to use in place of ``shs``'s, which may
+    then be None) go to ``preprocess``.
 
     Returns {"render" [3,H,W], "radii" [N] int32, "final_T" [H,W],
     "depth" [H,W], "num_rendered" int}. With ``with_stats`` the render runs
@@ -93,7 +94,8 @@ def render_tiled(means3d, opacities_raw, scales, rotations, shs,
     tiles_x, tiles_y = common.tile_grid(settings)
     with torch.no_grad() if with_stats else contextlib.nullcontext():
         pre = common.preprocess(means3d, opacities_raw, scales, rotations, shs, settings,
-                                mean2d_offset_ndc=mean2d_offset_ndc)
+                                mean2d_offset_ndc=mean2d_offset_ndc,
+                                colors_precomp=colors_precomp)
         ent = bin_and_sort(pre.rect_min, pre.rect_max, pre.tiles_touched, pre.depths,
                            tiles_x, tiles_y)
         if not with_stats:

@@ -1,37 +1,36 @@
 """Factories and the training-mode registry (counterpart of
 reduced_3dgs_tpu/prepare.py:36-128).
 
-``modes`` maps each training mode to its trainer constructor, the JAX
-package's compositions from ``combinations.py``; ``prepare_trainer`` wraps
-it with the scale regulariser (``with_scale_reg``) and the vector-quantizing
-wrapper (``quantize``), in the JAX package's order.
+``modes`` maps each of the ten training modes to its trainer constructor,
+the JAX package's compositions from ``combinations.py``; ``prepare_trainer``
+wraps it with the scale regulariser (``with_scale_reg``) and the
+vector-quantizing wrapper (``quantize``), in the JAX package's order. The
+``camera-*`` modes learn each camera's pose beside the model
+(``trainer.camera_trainer``) and take the camera-trainable model class.
 
-Still to be ported (ROADMAP.md item 22): the five ``camera-*`` modes, which
-need the camera trainer, and the ``gsplat-2dgs`` backend. Asking for one
-raises ``NotImplementedError``; nothing gives way to another mode.
+Still to be ported (ROADMAP.md item 22): the ``gsplat-2dgs`` backend, with
+the 2DGS renderer and its model classes. Asking for it raises
+``NotImplementedError``; nothing gives way to another backend.
 """
 from __future__ import annotations
 
-from .combinations import (FullPruningTrainer, OpacityResetFullReducedDensificationTrainer,
+from .combinations import (CameraFullPruningTrainer,
+                           CameraOpacityResetFullReducedDensificationTrainer,
+                           CameraSHCullingFullPruningTrainer,
+                           CameraSHCullingOpacityResetDensificationTrainer,
+                           CameraSHCullingOpacityResetFullReducedDensificationTrainer,
+                           FullPruningTrainer, OpacityResetFullReducedDensificationTrainer,
                            SHCullingFullPruningTrainer,
                            SHCullingOpacityResetDensificationTrainer,
                            SHCullingOpacityResetFullReducedDensificationTrainer)
 from .dataset.colmap import colmap_init
 from .quantization import VectorQuantizeTrainerWrapper
-from .shculling import VariableSHGaussianModel
+from .shculling import CameraTrainableVariableSHGaussianModel, VariableSHGaussianModel
 from .trainer.extensions import ScaleRegularizeTrainerWrapper
 
 # Every backend but gsplat-2dgs renders the 3DGS model: here, through the
 # port's CUDA compositors.
 backends = ["cuda", "inria", "gsplat", "gsplat-2dgs"]
-NOT_PORTED = "is not ported yet (ROADMAP.md item 22: the camera trainer, then the rest)"
-
-
-def _camera_mode(mode: str):
-    def constructor(model, dataset, **configs):
-        raise NotImplementedError(f"training mode {mode!r} {NOT_PORTED}")
-    return constructor
-
 
 modes = {
     "densify-shculling": SHCullingOpacityResetDensificationTrainer,
@@ -39,19 +38,22 @@ modes = {
     "pruning-shculling": SHCullingFullPruningTrainer,
     "densify-pruning": OpacityResetFullReducedDensificationTrainer,
     "densify-pruning-shculling": SHCullingOpacityResetFullReducedDensificationTrainer,
-    **{f"camera-{m}": _camera_mode(f"camera-{m}") for m in (
-        "densify-shculling", "pruning", "pruning-shculling", "densify-pruning",
-        "densify-pruning-shculling")},
+    "camera-densify-shculling": CameraSHCullingOpacityResetDensificationTrainer,
+    "camera-pruning": CameraFullPruningTrainer,
+    "camera-pruning-shculling": CameraSHCullingFullPruningTrainer,
+    "camera-densify-pruning": CameraOpacityResetFullReducedDensificationTrainer,
+    "camera-densify-pruning-shculling":
+        CameraSHCullingOpacityResetFullReducedDensificationTrainer,
 }
 
 
 def get_gaussian_model_class(backend: str, trainable_camera: bool = False):
-    if trainable_camera:
-        raise NotImplementedError(f"a model with trainable cameras {NOT_PORTED}")
     if backend == "gsplat-2dgs":
-        raise NotImplementedError(f"the {backend!r} backend {NOT_PORTED}")
+        raise NotImplementedError(f"the {backend!r} backend is not ported yet (ROADMAP.md "
+                                  "item 22: the 2DGS renderer and its model classes)")
     if backend in backends:
-        return VariableSHGaussianModel
+        return (CameraTrainableVariableSHGaussianModel if trainable_camera
+                else VariableSHGaussianModel)
     raise ValueError(f"Unknown backend: {backend}")
 
 

@@ -2,8 +2,10 @@
 
 Renders every camera of a COLMAP dataset from a trained model's PLY (or,
 with ``--load_quantized``, its ``point_cloud_quantized.ply``), saves the
-images and reports PSNR and SSIM. Runs on CUDA unless ``--device cpu``
-is given; without a GPU and without that flag it raises.
+images and reports PSNR and SSIM. ``--load_camera`` takes the poses from a
+cameras.json (a ``camera-*`` run's learned poses) and the images from the
+dataset, by name. Runs on CUDA unless ``--device cpu`` is given; without a
+GPU and without that flag it raises.
 
 Usage: python -m reduced_3dgs_torch.render -s <colmap_dir> -d <model_dir> -i 30000
 """
@@ -56,6 +58,7 @@ def main(argv=None):
     parser.add_argument("-d", "--destination", required=True, type=str)
     parser.add_argument("-i", "--iteration", default=30000, type=int)
     parser.add_argument("--load_quantized", action="store_true")
+    parser.add_argument("--load_camera", default=None, type=str)
     parser.add_argument("--device", default="cuda", type=str)
     parser.add_argument("--no_save_images", action="store_true")
     args = parser.parse_args(argv)
@@ -68,7 +71,7 @@ def main(argv=None):
             model, os.path.join(it_dir, "point_cloud_quantized.ply"))
     else:
         model.load_ply(os.path.join(it_dir, "point_cloud.ply"))
-    dataset = prepare_dataset(source=args.source, device=device)
+    dataset = prepare_dataset(source=args.source, device=device, load_camera=args.load_camera)
     metrics = render_dataset(model, dataset, os.path.join(args.destination, "renders"),
                              save_images=not args.no_save_images)
     if metrics:

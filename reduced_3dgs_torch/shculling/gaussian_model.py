@@ -8,13 +8,17 @@ the product's gradient is the mask times the cotangent). ``aux_state`` and
 ``aux_set`` carry it through the trainer's row removal and appending (new
 rows take ``aux_for_new_points``: the maximum degree), and SH culling sets
 it with ``aux_set``.
+
+``CameraTrainableVariableSHGaussianModel`` is the model of the ``camera-*``
+modes; the ``*Gsplat*`` names are the JAX registry's aliases of the same
+3DGS classes. The 2DGS classes come with the 2DGS renderer (ROADMAP.md).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..models.gaussian_model import GaussianModel
+from ..models.gaussian_model import CameraTrainableGaussianModel, GaussianModel
 from ..ops import sh as sh_ops
 
 
@@ -68,3 +72,12 @@ class VariableSHGaussianModel(GaussianModel):
             return self.init_degrees()
         self._degrees = torch.tensor(np.asarray(degrees, np.int32), device=self.device)
         return self
+
+
+class CameraTrainableVariableSHGaussianModel(VariableSHGaussianModel,
+                                             CameraTrainableGaussianModel):
+    pass
+
+
+VariableSHGsplatGaussianModel = VariableSHGaussianModel
+CameraTrainableVariableSHGsplatGaussianModel = CameraTrainableVariableSHGaussianModel

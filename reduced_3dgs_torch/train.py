@@ -14,11 +14,19 @@ without a GPU; ``--device cpu`` runs on the CPU. ``--mesh`` (training over
 several devices) raises: ``parallel/`` is not ported yet (ROADMAP.md item
 22).
 
+The ``camera-*`` modes build a ``TrainableCameraDataset`` and the
+camera-trainable model, and learn each view's pose (``--load_camera``
+starts from a cameras.json).
+
 ``training`` runs one trainer step per camera, in an order shuffled each
-epoch, and saves the model's PLY, the dataset's cameras.json and, with a
-quantizer, the quantized PLY at the ``save_iterations`` and at the end. It
-reads the loss on the host only every ``log_interval`` steps, where it
-prints the progress and aborts on a non-finite loss.
+epoch, and saves the model's PLY, cameras.json and, with a quantizer, the
+quantized PLY at the ``save_iterations`` and at the end. cameras.json holds
+each view's pose as the trainer learned it (``trainer.adjusted_camera``;
+the start pose outside the camera modes), so ``--load_camera`` of it renders
+what the trainer renders. (The JAX package writes the start poses there in
+every mode.) It reads the loss on the host only every ``log_interval``
+steps, where it prints the progress; on a non-finite loss it writes the
+trainer's state to a failure snapshot (``utils.debug``) and raises.
 """
 from __future__ import annotations
 
@@ -31,9 +39,10 @@ from typing import List, Optional
 
 import torch
 
-from .dataset.dataset import prepare_dataset
+from .dataset.dataset import CameraDataset, prepare_dataset
 from .prepare import backends, modes, prepare_gaussians, prepare_trainer
 from .trainer import AbstractTrainer
+from .utils.debug import trainer_snapshot
 from .utils.device import resolve_device
 from .utils.math import psnr
 
@@ -67,11 +76,13 @@ def prepare_training(sh_degree: int, source: str, device, mode: str, load_ply: s
                      quantize: bool = False, load_quantized: str = None, configs=None):
     """(dataset, model, trainer, quantizer or None), every tensor on ``device``."""
     device = resolve_device(device)
-    dataset = prepare_dataset(source=source, device=device, load_camera=load_camera,
-                              load_mask=load_mask, load_depth=load_depth)
+    trainable_camera = mode.startswith("camera-")
+    dataset = prepare_dataset(source=source, device=device, trainable_camera=trainable_camera,
+                              load_camera=load_camera, load_mask=load_mask,
+                              load_depth=load_depth)
     gaussians = prepare_gaussians(sh_degree=sh_degree, source=source, device=device,
-                                  trainable_camera=mode.startswith("camera-"),
-                                  load_ply=load_ply, backend=backend)
+                                  trainable_camera=trainable_camera, load_ply=load_ply,
+                                  backend=backend)
     trainer, quantizer = prepare_trainer(gaussians=gaussians, dataset=dataset, mode=mode,
                                          with_scale_reg=with_scale_reg, quantize=quantize,
                                          load_quantized=load_quantized, configs=configs)
@@ -105,7 +116,8 @@ def training(dataset, gaussians, trainer: AbstractTrainer, quantizer, destinatio
         save_path = os.path.join(destination, "point_cloud", f"iteration_{step}")
         os.makedirs(save_path, exist_ok=True)
         gaussians.save_ply(os.path.join(save_path, "point_cloud.ply"))
-        dataset.save_cameras(os.path.join(destination, "cameras.json"))
+        CameraDataset([trainer.adjusted_camera(c) for c in dataset],
+                      dataset.image_names).save_cameras(os.path.join(destination, "cameras.json"))
         if quantizer:
             quantizer.save_quantized(gaussians,
                                      os.path.join(save_path, "point_cloud_quantized.ply"))
@@ -126,7 +138,10 @@ def training(dataset, gaussians, trainer: AbstractTrainer, quantizer, destinatio
         if step % log_interval == 0:
             loss_now = float(ema_loss)
             if not math.isfinite(loss_now):
-                raise RuntimeError(f"non-finite loss {loss_now} at step {step}")
+                path = trainer_snapshot(trainer.engine, "nonfinite_loss", camera,
+                                        extra={"step": step, "loss": loss_now})
+                raise RuntimeError(f"non-finite loss {loss_now} at step {step}"
+                                   + (f"; state dumped to {path}" if path else ""))
             print(f"Training {step}/{iteration}: epoch {step // len(dataset)} "
                   f"loss {loss_now:.6f} psnr {avg_psnr:.4f} n {gaussians.num_points}",
                   flush=True)

@@ -2,6 +2,7 @@ from functools import partial
 
 from .abc import AbstractTrainer, TrainerWrapper  # noqa: F401
 from .base import BaseTrainer, Trainer  # noqa: F401
+from .camera_trainer import CameraTrainer, CameraTrainerWrapper  # noqa: F401
 from .densifier import (AbstractDensifier, AppendSpec,  # noqa: F401
                         DensificationDensifierWrapper, DensificationInstruction,
                         DensificationTrainer, DensifierWrapper, NoopDensifier,

@@ -50,8 +50,16 @@ class AbstractTrainer(abc.ABC):
         return {}
 
     def camera_adjustment(self, camera):
-        """Trainable-camera hook; None, as no camera trainer is ported yet."""
+        """Trainable-camera hook: None, or (delta tensors, apply(camera,
+        delta) -> camera, consume_grads(grads)) from the camera trainer
+        (``camera_trainer.CameraTrainer``); the engine renders through the
+        adjusted camera and hands the delta's gradients back."""
         return None
+
+    def adjusted_camera(self, camera):
+        """``camera`` with the pose the trainer learned for it; the camera
+        itself under every trainer but the camera trainer."""
+        return camera
 
     def optim_step(self):
         """Post-update hook chain; wrappers call super().optim_step() first."""
@@ -96,6 +104,9 @@ class TrainerWrapper(AbstractTrainer):
 
     def camera_adjustment(self, camera):
         return self.base_trainer.camera_adjustment(camera)
+
+    def adjusted_camera(self, camera):
+        return self.base_trainer.adjusted_camera(camera)
 
     def optim_step(self):
         return self.base_trainer.optim_step()

@@ -7,6 +7,8 @@ screen-space offset that requires grad, takes the loss
 SH-sparsity term), runs ``loss.backward()`` (the backward tile compositor
 is the CUDA kernel ``composite_bwd`` on the card), applies Adam in place
 and adds the offset's gradient norm to the densification statistics.
+Under the camera trainer the step renders through the camera moved by its
+learned delta, whose gradient comes out of the same ``backward``.
 
 The model keeps exactly N rows, and every Gaussian is alive. The JAX
 engine's capacity padding (``functional.bucket_capacity``, ``pad_axis0``,
@@ -168,11 +170,21 @@ class BaseTrainer(AbstractTrainer):
         detached, which the engine also keeps as ``_last_step_io_engine``
         with the camera. The loss's ``extras`` are ``loss_scalars()`` and
         ``step``, Adam's count before this step's update (as the JAX engine
-        passes its pre-increment count)."""
+        passes its pre-increment count). Under a camera trainer
+        (``outer.camera_adjustment``) the render and the loss see the
+        adjusted camera, the delta's gradients go back to the camera
+        trainer, and ``_last_step_io_engine`` keeps the camera as given."""
         self.maybe_advance_schedules()
         extras = dict(outer.loss_scalars(), step=self.adam.count)
-        loss, out, offset = self.forward_loss(outer.loss_pure(), camera, extras)
+        adjustment = outer.camera_adjustment(camera)
+        seen = camera
+        if adjustment is not None:
+            cam_params, apply, consume_grads = adjustment
+            seen = apply(camera, cam_params)
+        loss, out, offset = self.forward_loss(outer.loss_pure(), seen, extras)
         loss.backward()
+        if adjustment is not None:
+            consume_grads({k: p.grad for k, p in cam_params.items()})
         self.optimizer_step(out, offset)
         self._curr_step += 1
         loss = loss.detach()

@@ -1,15 +1,23 @@
 """The port's mode registry and command-line entry points (prepare.py,
 train.main, quantize.main, render.main --load_quantized).
 
-  * Each of the five modes, with and without ``quantize`` and
+  * Each of the ten modes, with and without ``quantize`` and
     ``with_scale_reg``, builds the JAX package's onion of wrappers, layer by
-    layer; the five camera modes and the gsplat-2dgs backend raise.
+    layer; a camera mode's model class is the camera-trainable one, and
+    only the gsplat-2dgs backend (and ``--mesh``) raise.
   * ``train.main --device cpu`` on a tiny COLMAP dataset (3 views of 24x32,
     60 sparse points) writes cfg_args, cameras.json and both PLYs, with
     ``-o`` values parsed as literals; ``quantize.main`` and
     ``render.main --load_quantized`` run on its output, and the quantized
     model renders as the dequantized PLY it wrote. Without ``--device cpu``
     every entry point raises here.
+  * ``train.main --mode camera-densify-pruning-shculling`` on the same
+    dataset learns each view's pose and writes it to cameras.json;
+    ``render.main --load_camera`` of it scores as the renders from the
+    trainer's adjusted cameras do.
+  * ``prepare_dataset(load_camera=...)`` takes the source's images by name
+    at the resolution scale, raises on an image whose size is not its
+    view's and warns of views without an image.
 """
 import json
 import os
@@ -19,6 +27,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from reduced_3dgs_torch import models as tmodels  # noqa: E402
 from reduced_3dgs_torch import prepare as tprepare  # noqa: E402
 from reduced_3dgs_torch import quantize as tquantize  # noqa: E402
 from reduced_3dgs_torch import render as trender  # noqa: E402
@@ -26,7 +35,10 @@ from reduced_3dgs_torch import train as ttrain  # noqa: E402
 from reduced_3dgs_torch.dataset.colmap import colmap_init  # noqa: E402
 from reduced_3dgs_torch.dataset.dataset import prepare_dataset  # noqa: E402
 from reduced_3dgs_torch.models.ply import read_ply  # noqa: E402
+from reduced_3dgs_torch.shculling import \
+    CameraTrainableVariableSHGaussianModel as CameraTModel  # noqa: E402
 from reduced_3dgs_torch.shculling import VariableSHGaussianModel as TModel  # noqa: E402
+from reduced_3dgs_torch.utils.math import psnr  # noqa: E402
 from reduced_3dgs_tpu import prepare as jprepare  # noqa: E402
 
 from .test_torch_fixtures import (jax_dataset, jax_model, random_cloud_np,  # noqa: E402
@@ -34,7 +46,9 @@ from .test_torch_fixtures import (jax_dataset, jax_model, random_cloud_np,  # no
 from .test_torch_pruning import onion, write_colmap  # noqa: E402
 
 MODES = ["densify-shculling", "pruning", "pruning-shculling", "densify-pruning",
-         "densify-pruning-shculling"]
+         "densify-pruning-shculling", "camera-densify-shculling", "camera-pruning",
+         "camera-pruning-shculling", "camera-densify-pruning",
+         "camera-densify-pruning-shculling"]
 STEPS = 6
 
 
@@ -58,7 +72,11 @@ def test_mode_onion_matches_jax(mode, quantize, with_scale_reg):
             (5000, 30000, 1000)
 
 
-def test_modes_and_backends_match_jax_and_camera_modes_raise():
+def test_modes_and_backends_match_jax(tmp_path):
+    """The ten modes in the JAX package's order; each camera mode is the
+    CameraTrainer over its mode without the prefix, with or without
+    ``quantize``; ``trainable_camera`` picks the camera-trainable class, and
+    only the gsplat-2dgs backend raises."""
     assert list(tprepare.modes) == list(jprepare.modes)
     params, degrees = random_cloud_np(45, 8)
     ds = torch_dataset([dict(height=16, width=16, fovx=1.0, fovy=1.0,
@@ -67,15 +85,26 @@ def test_modes_and_backends_match_jax_and_camera_modes_raise():
     for mode in tprepare.modes:
         if mode.startswith("camera-"):
             for quantize in (False, True):
-                with pytest.raises(NotImplementedError, match="item 22"):
-                    tprepare.prepare_trainer(torch_model(params, degrees), ds, mode,
-                                             quantize=quantize)
+                t, _ = tprepare.prepare_trainer(torch_model(params, degrees), ds, mode,
+                                                quantize=quantize)
+                base, _ = tprepare.prepare_trainer(torch_model(params, degrees), ds,
+                                                   mode[len("camera-"):], quantize=quantize)
+                assert onion(t) == onion(base)[:quantize] + ["CameraTrainer"] \
+                    + onion(base)[quantize:]
     with pytest.raises(NotImplementedError, match="item 22"):
         tprepare.get_gaussian_model_class("gsplat-2dgs")
     with pytest.raises(NotImplementedError, match="item 22"):
-        tprepare.get_gaussian_model_class("cuda", trainable_camera=True)
+        tprepare.get_gaussian_model_class("gsplat-2dgs", trainable_camera=True)
     for backend in ("cuda", "inria", "gsplat"):
         assert tprepare.get_gaussian_model_class(backend) is TModel
+        assert tprepare.get_gaussian_model_class(backend, trainable_camera=True) \
+            is CameraTModel
+    assert issubclass(CameraTModel, TModel)
+    assert issubclass(CameraTModel, tmodels.CameraTrainableGaussianModel)
+    ply = str(tmp_path / "p.ply")
+    torch_model(params, degrees).save_ply(ply)
+    model = tprepare.prepare_gaussians(3, "", device="cpu", trainable_camera=True, load_ply=ply)
+    assert type(model) is CameraTModel and model.num_points == 8
     with pytest.raises(ValueError, match="Unknown backend"):
         tprepare.get_gaussian_model_class("tpu")
 
@@ -149,6 +178,76 @@ def test_quantize_and_render_load_quantized(scene, tmp_path):
             metrics[bool(flags)] = json.load(f)
     assert metrics[True]["summary"]["n_points"] == 60
     assert metrics[True]["per_image"] == metrics[False]["per_image"]
+
+
+def test_camera_mode_main_and_render_load_camera(scene, tmp_path, monkeypatch):
+    """train.main in the camera flagship mode writes each view's learned
+    pose to cameras.json; render.main --load_camera of it (images taken from
+    the source by name) scores each view as the trained model renders from
+    the trainer's adjusted camera."""
+    src = scene[0]
+    out = str(tmp_path / "camera")
+    runs = []
+    training = ttrain.training
+
+    def keep(**kwargs):
+        runs.append(kwargs)
+        return training(**kwargs)
+
+    monkeypatch.setattr(ttrain, "training", keep)
+    losses = ttrain.main(["-s", src, "-d", out, "-i", str(STEPS), "--device", "cpu",
+                          "--mode", "camera-densify-pruning-shculling"])
+    assert len(losses) == STEPS and all(np.isfinite(float(v)) for v in losses)
+    (run,) = runs
+    trainer, dataset = run["trainer"], run["dataset"]
+    assert type(trainer).__name__ == "CameraTrainer" and type(run["gaussians"]) is CameraTModel
+    assert type(dataset).__name__ == "TrainableCameraDataset"
+    # One slot per view: the dataset hands out its stored cameras, sliced too.
+    assert len(trainer._cam_params) == len(dataset) == 3
+    assert type(dataset[0:2]) is type(dataset) and dataset[0:2].cameras[1] is dataset[1]
+    trender.main(["-s", src, "-d", out, "-i", str(STEPS), "--device", "cpu",
+                  "--no_save_images", "--load_camera", os.path.join(out, "cameras.json")])
+    with open(os.path.join(out, "metrics.json")) as f:
+        got = [m["psnr"] for m in json.load(f)["per_image"]]
+    model = TModel(3, device="cpu").load_ply(
+        os.path.join(out, "point_cloud", f"iteration_{STEPS}", "point_cloud.ply"))
+    want = []
+    with torch.no_grad():
+        for cam in dataset:
+            adjusted = trainer.adjusted_camera(cam)
+            assert float((adjusted.world_view_transform - cam.world_view_transform)
+                         .abs().max()) > 1e-6
+            want.append(float(psnr(model(adjusted)["render"], cam.ground_truth_image).mean()))
+    assert got == pytest.approx(want, rel=1e-6)
+
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_load_camera_images_by_name(scene, tmp_path, scale):
+    """prepare_dataset(load_camera=...) takes each view's image from the
+    source by name at the resolution scale: a cameras.json of the views at
+    that scale gets the images of the COLMAP load at that scale; the same
+    file at the other scale raises, naming the image; a view whose image is
+    missing keeps no image, with a warning that names it."""
+    import shutil
+    src = scene[0]
+    direct = prepare_dataset(src, device="cpu", resolution_scale=scale)
+    path = str(tmp_path / "cameras.json")
+    direct.save_cameras(path)
+    loaded = prepare_dataset(src, device="cpu", load_camera=path, resolution_scale=scale)
+    assert loaded.image_names == direct.image_names == ["v0", "v1", "v2"]
+    for a, b in zip(loaded, direct):
+        assert a.ground_truth_image.shape[1:] == (a.image_height, a.image_width)
+        assert torch.equal(a.ground_truth_image, b.ground_truth_image)
+    with pytest.raises(ValueError, match="v0.png"):
+        prepare_dataset(src, device="cpu", load_camera=path, resolution_scale=1.5 - scale)
+    partial = str(tmp_path / "partial")
+    shutil.copytree(src, partial)
+    os.remove(os.path.join(partial, "images", "v1.png"))
+    with pytest.warns(UserWarning, match=r"\['v1'\]"):
+        got = prepare_dataset(partial, device="cpu", load_camera=path, resolution_scale=scale)
+    assert got[1].ground_truth_image is None
+    assert torch.equal(got[2].ground_truth_image, direct[2].ground_truth_image)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path, monkeypatch):
