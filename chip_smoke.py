@@ -80,6 +80,21 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            the run's cameras.json and PLY, its renders against the trainer's
            adjusted cameras'; (d) render_packed of the trained SH-culled
            model against its dense render; (e) mark_visible's count per view
+  phase 12 the surfel backend and the remaining modules: (a) train.main
+           --backend gsplat-2dgs in the flagship mode for 30 steps and in the
+           camera flagship mode for a few, on phase 9's views, start and
+           schedule: N around each event, step times, peak memory, one
+           step's idle share, view 0's entry count beside the 3DGS
+           renderer's, and the compositors' launches, which must be 0; (b)
+           one 2DGS render, backward and statistics render of the 20,000
+           Gaussians of smallest x on the card against the CPU; (c) a late
+           tile of the full 2DGS render against the render of only the
+           Gaussians covering it; (d) the viewer over HTTP, its frames
+           against direct renders; (e) LPIPS with seeded weights on the card
+           against the CPU with TF32 off (and missing the bar with it
+           allowed), and render.main reporting it; (f) the native PLY
+           writer and reader against numpy at the bench scene; (g)
+           utils.profiling's trace and time_fn
 
 Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
@@ -233,6 +248,18 @@ FIELDS = ("x", "y", "A", "B", "C", "op", "r", "g", "b", "depth")
 # The kernels by ptxas name, with their ids in PERF.md's table.
 KERNEL_IDS = {"composite_fwd_kernel<false>": "B1", "composite_fwd_kernel<true>": "B2",
               "composite_bwd_kernel": "B3"}
+# Phase 12: the surfel renderer's outputs and the JAX package's bars for
+# them (card against CPU); the camera mode's steps; a late tile's pixels in
+# the full render against the covering Gaussians alone; the viewer's
+# requests and viewport; LPIPS on the card against the CPU.
+TWODGS_OUTPUTS = ("render", "final_T", "depth", "normal", "distortion")
+TWODGS_ATOL = {"render": 1e-4, "final_T": 1e-4, "normal": 1e-4, "depth": 5e-4,
+               "distortion": 5e-4}
+TWODGS_CAMERA_STEPS = 6
+TOL_TILE = 1e-5
+VIEWER_REQUESTS = 8
+VIEWER_HEIGHT, VIEWER_WIDTH = 544, 960
+TOL_LPIPS = 1e-6
 
 
 def log(msg):
@@ -1776,6 +1803,529 @@ def camera_phase(card, params_p, src, wrappers, tmp, dense_config, flagship_ms):
     return launches
 
 
+def twodgs_train_phase(card, params_p, src, wrappers, tmp, dense_config, flagship_ms):
+    """Phase 12 (a): train.main --backend gsplat-2dgs in the flagship mode
+    for FLAGSHIP_STEPS steps and in the camera flagship mode for
+    TWODGS_CAMERA_STEPS, on phase 9's views, start and schedule: N around
+    every event, the step times, peak memory, one step's idle share, view
+    0's entry count beside the 3DGS renderer's, and the compositors'
+    launches, which must all be 0."""
+    from reduced_3dgs_torch import train
+    from reduced_3dgs_torch.ops.rasterize import twodgs
+    from reduced_3dgs_torch.ops.rasterize.tiled import render_tiled
+    from reduced_3dgs_torch.shculling import (CameraTrainableVariableSHGsplat2DGSGaussianModel,
+                                              VariableSHGaussianModel,
+                                              VariableSHGsplat2DGSGaussianModel)
+    from reduced_3dgs_torch.trainer import AbstractTrainer
+    dev = torch.device("cuda")
+    failures = []
+    start_ply = os.path.join(tmp, "twodgs_start", "point_cloud.ply")
+    start = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
+    start.save_ply(start_ply)
+    cam0 = view_camera(view_poses()[0], dev)
+    with torch.no_grad():
+        k3 = render_tiled(*start.render_array_args(), start.render_settings(cam0))["num_rendered"]
+        k2 = twodgs.render_tiled_2dgs(*start.render_array_args(),
+                                      start.render_settings(cam0))["num_rendered"]
+    log(f"phase 12 [{card}]: view 0 of the perturbed start: K {k2} surfel entries against "
+        f"{k3} of the 3DGS renderer")
+    del start
+    config = dict(FLAGSHIP_CONFIG, **{k: dense_config[k] for k in (
+        "densify_grad_threshold", "densify_percent_dense", "prune_percent_too_big")})
+    training, step = train.training, AbstractTrainer.step
+    results = {}
+    for mode, steps in (("densify-pruning-shculling", FLAGSHIP_STEPS),
+                        (CAMERA_MODE, TWODGS_CAMERA_STEPS)):
+        out = os.path.join(tmp, f"twodgs_{mode}")
+        argv = ["-s", src, "-d", out, "-i", str(steps), "-l", start_ply, "--mode", mode,
+                "--backend", "gsplat-2dgs"]
+        for k, v in config.items():
+            argv += ["-o", f"{k}={v!r}"]
+        runs, step_times, sizes = [], {}, {}
+
+        def keep(**kwargs):
+            runs.append(kwargs)
+            return training(**kwargs)
+
+        def timed_step(self, camera):
+            s = self.curr_step + 1
+            sizes[s] = [self.model.num_points]
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            result = step(self, camera)
+            b.record()
+            step_times[s] = (a, b)
+            sizes[s].append(self.model.num_points)
+            return result
+
+        train.training, AbstractTrainer.step = keep, timed_step
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            losses = train.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            train.training, AbstractTrainer.step = training, step
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        (run,) = runs
+        trainer, dataset, model = run["trainer"], run["dataset"], run["gaussians"]
+        values = torch.stack(losses).cpu().tolist()
+        ms = {s: a.elapsed_time(b) for s, (a, b) in step_times.items()}
+        events = [s for s in sorted(set(F_SPLIT + F_PRUNE + F_IMPORTANCE + F_CULL + F_RESET))
+                  if s <= steps]
+        ordinary = statistics.median(t for s, t in ms.items() if s not in events)
+        log(f"phase 12 [{card}]: train.main --backend gsplat-2dgs --mode {mode}, {steps} steps "
+            f"in {wall:.2f} s; {type(trainer).__name__}, {type(model).__name__}; N "
+            f"{N_GAUSSIANS} -> {model.num_points}; median ordinary step {ordinary:.4f} ms "
+            f"(the 3DGS flagship's {flagship_ms:.4f} ms, phase 9); peak memory "
+            f"{peak / 2**30:.3f} GiB ({base_bytes / 2**30:.3f} GiB allocated before); losses "
+            f"{values}; launches {launches}")
+        for s in events:
+            log(f"phase 12: {mode} step {s}: {ms[s]:.4f} ms ({ms[s] / ordinary:.2f}x the median "
+                f"ordinary step), N {sizes[s][0]} -> {sizes[s][1]}")
+        want_cls = (CameraTrainableVariableSHGsplat2DGSGaussianModel if mode == CAMERA_MODE
+                    else VariableSHGsplat2DGSGaussianModel)
+        if type(model) is not want_cls:
+            failures.append(f"{mode}: model class {type(model).__name__}")
+        if launches != {"composite_fwd": 0, "composite_fwd_stats": 0, "composite_bwd": 0}:
+            failures.append(f"{mode}: the 2DGS path launched {launches}")
+        if len(values) != steps or not all(map(math.isfinite, values)):
+            failures.append(f"{mode}: losses are not all finite: {values}")
+        rows = {v.shape[0] for t in trainer.engine.state_trees().values() for v in t.values()}
+        if rows != {model.num_points}:
+            failures.append(f"{mode}: per-Gaussian tensors have rows {sorted(rows)}")
+        if mode == CAMERA_MODE:
+            moved = [float(trainer._cam_params[id(c)]["trans"].detach().norm()) for c in dataset]
+            log(f"phase 12: {mode}: learned |trans| per view {moved}")
+            if not all(m > 0 for m in moved):
+                failures.append(f"{mode}: a view's pose did not move")
+        else:
+            split_n = [sizes[s] for s in F_SPLIT]
+            if not any(b > a for a, b in split_n):
+                failures.append("the 2DGS flagship's splits added nothing")
+            busy = device_busy(lambda: trainer.step(dataset[0]), calls=3)
+            n_launch, busy_ms, wall_ms, top, _ = busy
+            if busy_ms > 0:
+                log(f"phase 12 [{card}]: one 2DGS flagship step at N={model.num_points} under "
+                    f"torch.profiler: {n_launch:.0f} device kernels and copies, busy "
+                    f"{busy_ms:.4f} ms of {wall_ms:.4f} ms wall (idle share "
+                    f"{1 - busy_ms / wall_ms:.4f}); top: "
+                    + "; ".join(f"{k} x{c} {t:.4f} ms" for k, c, t in top))
+            else:
+                log("phase 12: the 2DGS step's idle share not measured (the profiler saw no "
+                    "device time)")
+        results[mode] = dict(ordinary=ordinary, peak=peak, n=model.num_points)
+        del runs, run, trainer, dataset, model
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("phase 12 (a): " + "; ".join(failures))
+    return results
+
+
+def twodgs_near(pre, ent, tiles_x, height, width):
+    """Where the 2DGS compositor decides on the last bit, from float64
+    copies of its fields on their device: per sorted entry and per image
+    pixel, whether any (entry, pixel) pair holds the low-pass choice (rho3d
+    against rho2d), the alpha gate or clamp, the near cull, the latch test
+    or the |s_z| guard within DECISION_MARGIN of flipping. The latch is
+    tested on every gated pair (a superset of those the walk reaches)."""
+    from reduced_3dgs_torch import config as rc
+    gidx, tile = ent["s_gidx"], ent["s_tile"]
+    f = {k: pre[k].detach().double()[gidx] for k in ("M", "md", "center2d", "opacity")}
+    M, md, c2d, op = f["M"], f["md"], f["center2d"], f["opacity"][:, None]
+    seg_start = ent["range_start"].long()[tile]
+    m = DECISION_MARGIN
+    entry_near = torch.zeros(tile.numel(), dtype=torch.bool, device=tile.device)
+    pixel_near = torch.zeros((256, tiles_x * ((height + 15) // 16)), dtype=torch.bool,
+                             device=tile.device)
+    for p0 in range(0, 256, 64):
+        p = torch.arange(p0, p0 + 64, device=tile.device)[None, :]
+        px = ((tile % tiles_x) * 16)[:, None] + p % 16
+        py = ((tile // tiles_x) * 16)[:, None] + p // 16
+        k = px[..., None] * M[:, None, 2, :] - M[:, None, 0, :]
+        ll = py[..., None] * M[:, None, 2, :] - M[:, None, 1, :]
+        s = torch.linalg.cross(k, ll, dim=-1)
+        sz = torch.where(s[..., 2].abs() < 1e-9, torch.full_like(s[..., 2], 1e-9), s[..., 2])
+        u, v = s[..., 0] / sz, s[..., 1] / sz
+        rho3, rho2 = u * u + v * v, ((px - c2d[:, 0:1]) ** 2 + (py - c2d[:, 1:2]) ** 2) / 0.5
+        g_op = op * torch.exp(-0.5 * torch.minimum(rho3, rho2))
+        depth = torch.where(rho3 <= rho2, md[:, None, 0] * u + md[:, None, 1] * v
+                            + md[:, None, 2], md[:, None, 2].expand_as(u))
+        alpha = torch.clamp(g_op, max=rc.ALPHA_MAX)
+        gate = (alpha >= rc.ALPHA_EPS) & (depth > rc.NEAR_CULL_Z)
+        abar = torch.where(gate, alpha, torch.zeros_like(alpha))
+        log1ma = torch.log1p(-abar).T
+        lex = torch.cumsum(log1ma, dim=1) - log1ma
+        t_in = torch.exp(lex - lex[:, seg_start]).T
+        seen = g_op >= 0.5 * rc.ALPHA_EPS
+        near = (((g_op - rc.ALPHA_EPS).abs() <= m * rc.ALPHA_EPS)
+                | ((g_op - rc.ALPHA_MAX).abs() <= m)
+                | (seen & ((rho3 - rho2).abs() <= m * rho2))
+                | (seen & ((depth - rc.NEAR_CULL_Z).abs() <= m * rc.NEAR_CULL_Z))
+                | (seen & ((s[..., 2].abs() - 1e-9).abs() <= m * 1e-9))
+                | (gate & ((t_in * (1 - abar) - rc.T_EPS).abs() <= m * rc.T_EPS)))
+        entry_near |= near.any(dim=1)
+        hits = torch.zeros((64, pixel_near.shape[1]), dtype=torch.int32, device=tile.device)
+        hits.index_add_(1, tile, near.T.to(torch.int32))
+        pixel_near[p0:p0 + 64] |= hits > 0
+    tiles_y = (height + 15) // 16
+    img = pixel_near.T.reshape(tiles_y, tiles_x, 16, 16).permute(0, 2, 1, 3).reshape(
+        tiles_y * 16, tiles_x * 16)[:height, :width]
+    return entry_near, img
+
+
+def twodgs_compare_phase(card, params, params_p):
+    """Phase 12 (b): one 2DGS render and backward of the MERCY_SUBSET
+    Gaussians of smallest x at view 0, on the card and on the CPU: every
+    output within the JAX package's bars, every parameter's gradient and
+    mean2d_offset_ndc's within rtol 2e-3 / atol 3e-5 of max|g|, and a
+    with_stats render's counts exact and scores within 1e-4, outside the
+    pixels and Gaussians a last-bit decision touches. (c): a late tile of
+    view 0 in the full 2DGS render of the bench scene against the render of
+    only the Gaussians whose rectangle covers it, within 1e-5."""
+    from reduced_3dgs_torch.ops.rasterize import twodgs
+    from reduced_3dgs_torch.ops.rasterize.tiled import bin_and_sort
+    from reduced_3dgs_torch.shculling import VariableSHGsplat2DGSGaussianModel
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    failures = []
+    subset = np.argsort(params_p["xyz"][:, 0], kind="stable")[:MERCY_SUBSET]
+    sub = {k: v[subset] for k, v in params_p.items()}
+    gen = np.random.default_rng(12)
+    cot = {k: gen.normal(size=shape).astype(np.float32) for k, shape in (
+        ("render", (3, HEIGHT, WIDTH)), ("final_T", (HEIGHT, WIDTH)), ("depth", (HEIGHT, WIDTH)),
+        ("normal", (3, HEIGHT, WIDTH)), ("distortion", (HEIGHT, WIDTH)))}
+    res = []
+    for where in (dev, cpu):
+        m = VariableSHGsplat2DGSGaussianModel(3, device=where).load_numpy(sub)
+        cam = view_camera(view_poses()[0], where)
+        offset = torch.zeros((m.num_points, 2), device=where, requires_grad=True)
+        t0 = time.perf_counter()
+        out = m.render(cam, offset)
+        loss = sum(torch.sum(out[k] * torch.from_numpy(c).to(where)) for k, c in cot.items())
+        loss.backward()
+        with torch.no_grad():
+            stats = m(cam, with_stats=True)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        grads = {f"_{k}": v.grad for k, v in m.param_dict().items()}
+        grads["mean2d_offset_ndc"] = offset.grad
+        res.append(dict(out={k: out[k].detach().cpu() for k in TWODGS_OUTPUTS},
+                               grads={k: g.cpu() for k, g in grads.items()},
+                               stats={k: v.cpu() for k, v in stats.items()
+                                      if k in ("gaussians_count", "opacity_important_score",
+                                               "T_alpha_important_score",
+                                               "transmittance_sum")},
+                               k=out["num_rendered"], s=time.perf_counter() - t0))
+        if where is dev:
+            with torch.no_grad():
+                settings = m.render_settings(cam)
+                pre = twodgs.preprocess_2dgs(*m.render_array_args(), settings)
+                tiles_x = (WIDTH + 15) // 16
+                ent = bin_and_sort(pre["rect_min"], pre["rect_max"], pre["tiles_touched"],
+                                   pre["depths"], tiles_x, (HEIGHT + 15) // 16)
+                entry_near, pixel_near = twodgs_near(pre, ent, tiles_x, HEIGHT, WIDTH)
+                row_near = torch.zeros(m.num_points, dtype=torch.int32, device=dev).index_add_(
+                    0, ent["s_gidx"], entry_near.to(torch.int32)) > 0
+            row_near, pixel_near = row_near.cpu(), pixel_near.cpu()
+        del m, out, loss, stats, grads, offset
+    card_res, cpu_res = res
+    keep_px = ~pixel_near
+    errs = {}
+    for k in TWODGS_OUTPUTS:
+        d = (card_res["out"][k] - cpu_res["out"][k]).abs()
+        errs[k] = float(d[..., keep_px].max())
+        if not errs[k] <= TWODGS_ATOL[k]:
+            failures.append(f"(b) {k} differs by {errs[k]} (bar {TWODGS_ATOL[k]})")
+    g_errs = {}
+    for k, gc in cpu_res["grads"].items():
+        gk = card_res["grads"][k]
+        keep = ~row_near
+        scale = float(gc.abs().max())
+        excess = ((gk - gc).abs() - (GCAM_ATOL * scale + GCAM_RTOL * gc.abs()))[keep]
+        g_errs[k] = float((gk - gc)[keep].abs().max()) / max(scale, 1e-30)
+        if not scale > 0 or bool((excess > 0).any()):
+            failures.append(f"(b) the gradient of {k} differs (max|g| {scale})")
+    counts_equal = bool(torch.equal(card_res["stats"]["gaussians_count"][~row_near],
+                                    cpu_res["stats"]["gaussians_count"][~row_near]))
+    # Scores within rtol 1e-4 and atol 1e-4, the JAX package's bar for its
+    # statistics kernel (a score sums up to thousands of pixels).
+    s_errs, s_fail = {}, False
+    for k in ("opacity_important_score", "T_alpha_important_score", "transmittance_sum"):
+        a, b = card_res["stats"][k][~row_near], cpu_res["stats"][k][~row_near]
+        s_errs[k] = float((a - b).abs().max())
+        s_fail |= bool(((a - b).abs() > 1e-4 + 1e-4 * b.abs()).any())
+    if not counts_equal or s_fail:
+        failures.append(f"(b) statistics differ: counts equal {counts_equal}, scores {s_errs}")
+    log(f"phase 12 [{card}]: 2DGS render + backward + statistics of {MERCY_SUBSET} Gaussians "
+        f"(K {card_res['k']} card, {cpu_res['k']} CPU) at view 0: card {card_res['s']:.2f} s, "
+        f"CPU {cpu_res['s']:.2f} s; pixels with a decision within {DECISION_MARGIN} of its "
+        f"threshold {int(pixel_near.sum())} of {HEIGHT * WIDTH}, Gaussians "
+        f"{int(row_near.sum())}; outside them max |card - CPU| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + "; gradients max |d| / max|g| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in g_errs.items())
+        + f"; counts equal {counts_equal}, scores (bar rtol 1e-4, atol 1e-4) max |d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in s_errs.items()))
+    if card_res["k"] != cpu_res["k"]:
+        failures.append(f"(b) K {card_res['k']} on the card, {cpu_res['k']} on the CPU")
+    del res, card_res, cpu_res
+    torch.cuda.empty_cache()
+
+    # (c) tile independence at full K.
+    model = VariableSHGsplat2DGSGaussianModel(3, device=dev).load_numpy(params)
+    cam = view_camera(view_poses()[0], dev)
+    with torch.no_grad():
+        settings = model.render_settings(cam)
+        pre = twodgs.preprocess_2dgs(*model.render_array_args(), settings)
+        tiles_x, tiles_y = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
+        ent = bin_and_sort(pre["rect_min"], pre["rect_max"], pre["tiles_touched"],
+                           pre["depths"], tiles_x, tiles_y)
+        rs, re = ent["range_start"].long(), ent["range_end"].long()
+        busy = torch.nonzero(re > rs)[:, 0]
+        t = int(busy[(busy.numel() * 9) // 10])            # a late, non-empty tile
+        tx, ty = t % tiles_x, t // tiles_x
+        lo, hi = pre["rect_min"], pre["rect_max"]
+        cover = ((pre["tiles_touched"] > 0) & (lo[:, 0] <= tx) & (tx < hi[:, 0])
+                 & (lo[:, 1] <= ty) & (ty < hi[:, 1]))
+        full = model(cam)
+        part = VariableSHGsplat2DGSGaussianModel(3, device=dev).load_numpy(
+            {k: v[cover.cpu().numpy()] for k, v in params.items()})(cam)
+        ys, xs = slice(ty * 16, min(ty * 16 + 16, HEIGHT)), slice(tx * 16, min(tx * 16 + 16, WIDTH))
+        tile_err = max(float((full[k][..., ys, xs] - part[k][..., ys, xs]).abs().max())
+                       for k in TWODGS_OUTPUTS)
+    log(f"phase 12 [{card}]: tile independence at full K {full['num_rendered']}: tile {t} "
+        f"(row {ty}, column {tx}) after {int(rs[t])} entries of earlier tiles, "
+        f"{int(re[t] - rs[t])} of its own from {int(cover.sum())} Gaussians; max |full - "
+        f"covering-only| over its pixels {tile_err:.3e} (bar {TOL_TILE})")
+    if not tile_err <= TOL_TILE or not int(rs[t]) > 0.5 * full["num_rendered"]:
+        failures.append(f"(c) tile {t} differs by {tile_err}")
+    if failures:
+        raise AssertionError("phase 12: " + "; ".join(failures))
+    return full["num_rendered"]
+
+
+def viewer_phase(card, params, wrappers):
+    """Phase 12 (d): the port's viewer over the bench scene's 3DGS model,
+    served by a ThreadingHTTPServer on 127.0.0.1 (an ephemeral port):
+    VIEWER_REQUESTS orbit frames at VIEWER_HEIGHT x VIEWER_WIDTH and one
+    with the scale and SH overrides. Each PNG decodes to the uint8 of the
+    model's render from the orbit camera, the overrides are restored, and
+    the forward compositor launches once per frame; the time per request,
+    and the served frames' render and PNG encode, stamped inside
+    ViewerApp.render_frame."""
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from PIL import Image
+    from reduced_3dgs_torch import viewer
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    dev = torch.device("cuda")
+    failures = []
+    model = VariableSHGaussianModel(3, device=dev).load_numpy(params)
+    app = viewer.ViewerApp(model, VIEWER_HEIGHT, VIEWER_WIDTH)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), viewer.make_handler(app))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    views = [dict(yaw=0.15 * i - 0.5, pitch=0.1 * (i % 3) - 0.1) for i in range(VIEWER_REQUESTS)]
+    views.append(dict(yaw=0.2, pitch=0.05, scale=0.7, sh=1))
+    frames, request_ms, render_ms, encode_ms = [], [], [], []
+    try:
+        urllib.request.urlopen(f"http://127.0.0.1:{server.server_address[1]}/render?yaw=0",
+                               timeout=120).read()                       # warm-up
+        for fn in wrappers.values():
+            fn.launches = 0
+        for q in views:
+            query = "&".join(f"{k}={v}" for k, v in q.items())
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.server_address[1]}/render?{query}",
+                    timeout=120) as resp:
+                body, headers = resp.read(), dict(resp.headers)
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+            render_ms.append(app.last_frame_ms["render"])
+            encode_ms.append(app.last_frame_ms["encode"])
+            frames.append((body, headers))
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    restored = (model.scale_modifier, model.active_sh_degree) == (1.0, 3)
+    mismatched = 0
+    for q, (body, headers) in zip(views, frames):
+        got = np.asarray(Image.open(io.BytesIO(body)))
+        model.scale_modifier, model.active_sh_degree = q.get("scale", 1.0), q.get("sh", 3)
+        with torch.no_grad():
+            want = viewer.to_uint8(model(app.camera(q["yaw"], q["pitch"]))["render"])
+        model.scale_modifier, model.active_sh_degree = 1.0, 3
+        mismatched += int((got != want).any(axis=-1).sum())
+        if got.shape != (VIEWER_HEIGHT, VIEWER_WIDTH, 3) or headers["Content-Type"] != "image/png":
+            failures.append(f"frame {q}: shape {got.shape}, {headers['Content-Type']}")
+    log(f"phase 12 [{card}]: viewer over HTTP, {len(views)} frames at {VIEWER_HEIGHT}x"
+        f"{VIEWER_WIDTH} ({model.num_points} Gaussians): median {statistics.median(request_ms):.2f}"
+        f" ms per request (range {min(request_ms):.2f}-{max(request_ms):.2f}), of which the "
+        f"served frames' render (with its copy to the host) median "
+        f"{statistics.median(render_ms):.2f} ms and PNG encode median "
+        f"{statistics.median(encode_ms):.2f} ms (perf_counter stamps in render_frame); "
+        f"pixels differing from the direct "
+        f"render {mismatched}; overrides restored {restored}; launches {launches}")
+    if mismatched or not restored:
+        failures.append(f"(d) {mismatched} pixels differ, overrides restored {restored}")
+    if launches != {"composite_fwd": len(views), "composite_fwd_stats": 0, "composite_bwd": 0}:
+        failures.append(f"(d) the viewer launched {launches} for {len(views)} frames")
+    if failures:
+        raise AssertionError("phase 12: " + "; ".join(failures))
+
+
+def lpips_phase(card, params_p, src, dst, tmp):
+    """Phase 12 (e): LPIPS with seeded random weights (the exporter's .npz
+    layout) on the card against the CPU, with TF32 off, on the perturbed
+    model's render of view 0 against its image; the same distance with
+    cuDNN's TF32 allowed (lpips._distance, which leaves the switch as it
+    finds it) must miss the bar, so that the check can tell the two apart;
+    render.main with R3DGS_LPIPS_WEIGHTS set reports a finite LPIPS per
+    view."""
+    import importlib
+    from reduced_3dgs_torch import render
+    from reduced_3dgs_torch.dataset.dataset import prepare_dataset
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    lp = importlib.import_module("reduced_3dgs_torch.metrics.lpips")
+    rng = np.random.default_rng(13)
+    weights, in_ch = {}, 3
+    for i, (out_ch, k, _, _) in enumerate(lp._ALEX):
+        weights[f"conv{i}/w"] = rng.normal(0, 0.05, (out_ch, in_ch, k, k)).astype(np.float32)
+        weights[f"conv{i}/b"] = rng.normal(0, 0.01, (out_ch,)).astype(np.float32)
+        weights[f"lin{i}/w"] = rng.random(out_ch).astype(np.float32)
+        in_ch = out_ch
+    path = os.path.join(tmp, "lpips_alex.npz")
+    np.savez(path, **weights)
+    dataset = prepare_dataset(src)
+    model = VariableSHGaussianModel(3, device=torch.device("cuda")).load_numpy(params_p)
+    with torch.no_grad():
+        img = torch.clamp(model(dataset[0])["render"], 0, 1)
+    gt = dataset[0].ground_truth_image
+    tf32 = torch.backends.cudnn.allow_tf32
+    values = {}
+    for name, where in (("cuda", torch.device("cuda")), ("cpu", torch.device("cpu"))):
+        params = lp.load_lpips_params(weights, where)
+        lp.lpips(img.to(where), gt.to(where), params)               # warm-up
+        t0 = time.perf_counter()
+        values[name] = float(lp.lpips(img.to(where), gt.to(where), params))
+        values[f"{name}_s"] = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        values["cuda_tf32"] = float(lp._distance(lp.load_lpips_params(weights, img.device),
+                                                 img, gt.to(img.device)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = abs(values["cuda"] - values["cpu"])
+    err_tf32 = abs(values["cuda_tf32"] - values["cpu"])
+    before = os.environ.get("R3DGS_LPIPS_WEIGHTS")
+    os.environ["R3DGS_LPIPS_WEIGHTS"] = path
+    try:
+        render.main(["-s", src, "-d", dst, "-i", "1", "--no_save_images"])
+    finally:
+        if before is None:
+            del os.environ["R3DGS_LPIPS_WEIGHTS"]
+        else:
+            os.environ["R3DGS_LPIPS_WEIGHTS"] = before
+    with open(os.path.join(dst, "metrics.json")) as f:
+        per_image = [m.get("lpips") for m in json.load(f)["per_image"]]
+    log(f"phase 12 [{card}]: LPIPS (seeded weights) of the perturbed render of view 0 at "
+        f"{HEIGHT}x{WIDTH}: card {values['cuda']!r} ({values['cuda_s']:.3f} s), CPU "
+        f"{values['cpu']!r} ({values['cpu_s']:.3f} s), |difference| {err:.3e} (bar "
+        f"{TOL_LPIPS}); with cuDNN's TF32 allowed {values['cuda_tf32']!r}, |difference| "
+        f"{err_tf32:.3e}; TF32 switch restored {torch.backends.cudnn.allow_tf32 == tf32}; "
+        f"render.main with the weights: lpips per view {per_image}")
+    if not err <= TOL_LPIPS or torch.backends.cudnn.allow_tf32 != tf32:
+        raise AssertionError(f"phase 12 (e): LPIPS on the card {err} from the CPU's")
+    if not err_tf32 > TOL_LPIPS:
+        raise AssertionError(f"phase 12 (e): with TF32 allowed the card is {err_tf32} from "
+                             "the CPU, within the bar: the check cannot tell TF32 on from off")
+    if len(per_image) != N_VIEWS or not all(v is not None and math.isfinite(v) and v > 0
+                                            for v in per_image):
+        raise AssertionError(f"phase 12 (e): render.main reported LPIPS {per_image}")
+
+
+def native_io_phase(card, params, tmp):
+    """Phase 12 (f): the bench scene's PLY written by the native library and
+    by numpy, byte for byte equal, each read back, with the seconds of each
+    path; the native path must have run."""
+    from reduced_3dgs_torch.models import native_io, ply
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    model = VariableSHGaussianModel(3, device=torch.device("cuda")).load_numpy(params)
+    t0 = time.perf_counter()
+    active = native_io.active()
+    build_s = time.perf_counter() - t0
+    times, paths, data = {}, {}, {}
+    get_lib = native_io.get_lib
+    for way in ("native", "numpy"):
+        path = os.path.join(tmp, f"ply_{way}.ply")
+        if way == "numpy":
+            native_io.get_lib = lambda: None
+        try:
+            t0 = time.perf_counter()
+            model.save_ply(path)
+            times[f"write_{way}"] = time.perf_counter() - t0
+            paths[f"write_{way}"] = native_io.last_path("write_ply")
+            t0 = time.perf_counter()
+            back = ply.read_ply(path)
+            times[f"read_{way}"] = time.perf_counter() - t0
+            paths[f"read_{way}"] = native_io.last_path("read_ply")
+        finally:
+            native_io.get_lib = get_lib
+        with open(path, "rb") as f:
+            data[way] = f.read()
+        if len(back["vertex"]) != N_GAUSSIANS:
+            raise AssertionError(f"phase 12 (f): the {way} read gave {len(back['vertex'])} rows")
+    log(f"phase 12 [{card}]: PLY of {N_GAUSSIANS} Gaussians ({len(data['native'])} bytes): "
+        f"native library active {active} (built and loaded in {build_s:.2f} s, error "
+        f"{native_io.build_error()}); " + ", ".join(f"{k} {v:.4f} s" for k, v in times.items())
+        + f"; paths {paths}; bytes equal {data['native'] == data['numpy']}")
+    if not active or paths != {"write_native": "native", "read_native": "native",
+                               "write_numpy": "numpy", "read_numpy": "numpy"}:
+        raise AssertionError(f"phase 12 (f): the native path did not run: {paths}")
+    if data["native"] != data["numpy"]:
+        raise AssertionError("phase 12 (f): native and numpy PLY bytes differ")
+
+
+def profiling_phase(card, params_p, src, tmp):
+    """Phase 12 (g): utils.profiling.trace around one training step writes a
+    Chrome trace, and time_fn times a render."""
+    from reduced_3dgs_torch.dataset.dataset import prepare_dataset
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    from reduced_3dgs_torch.trainer import Trainer
+    from reduced_3dgs_torch.utils import profiling
+    dataset = prepare_dataset(src)
+    model = VariableSHGaussianModel(3, device=torch.device("cuda")).load_numpy(params_p)
+    trainer = Trainer(model, dataset)
+    trainer.step(dataset[0])
+    log_dir = os.path.join(tmp, "trace")
+    with profiling.trace(log_dir):
+        with profiling.annotate("r3dgs_step"):
+            trainer.step(dataset[1])
+    files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    on_card = sum(1 for e in events if e.get("cat") == "kernel")
+    annotated = any(e.get("name") == "r3dgs_step" for e in events)
+    with torch.no_grad():
+        timed = profiling.time_fn(model, dataset[0], iters=5)
+    log(f"phase 12 [{card}]: profiling.trace of one step wrote {len(files)} file(s), "
+        f"{os.path.getsize(files[0])} bytes, {len(events)} events ({on_card} device kernels, "
+        f"annotation found {annotated}); time_fn of a render {timed}")
+    if len(files) != 1 or not annotated or not (math.isfinite(timed["mean_s"])
+                                                and timed["mean_s"] > 0):
+        raise AssertionError("phase 12 (g): the trace or time_fn failed")
+
+
 def card_name():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2253,6 +2803,19 @@ def run(tmp):
     camera_launches = camera_phase(card, params_p, src, wrappers, tmp, dense_config,
                                    flagship_ms)
     log(f"phase 11 [{card}]: {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- phase 12
+    t0 = time.perf_counter()
+    twodgs_train_phase(card, params_p, src, wrappers, tmp, dense_config, flagship_ms)
+    torch.cuda.empty_cache()
+    twodgs_compare_phase(card, params, params_p)
+    torch.cuda.empty_cache()
+    viewer_phase(card, params, wrappers)
+    lpips_phase(card, params_p, src, dst, tmp)
+    native_io_phase(card, params, tmp)
+    profiling_phase(card, params_p, src, tmp)
+    torch.cuda.empty_cache()
+    log(f"phase 12 [{card}]: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{

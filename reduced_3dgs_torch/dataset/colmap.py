@@ -87,6 +87,13 @@ def read_images_binary(path: str) -> Dict[int, ColmapImage]:
 
 
 def read_points3d_binary(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(xyz, rgb) of a points3D.bin: through the native parser where it is
+    built and reads the file whole, else here (which raises EOFError on a
+    file that ends early)."""
+    from ..models import native_io
+    out = native_io.read_colmap_points_native(path)
+    if out is not None:
+        return out
     with open(path, "rb") as f:
         num = struct.unpack("<Q", _read(f, 8))[0]
         xyz = np.empty((num, 3), np.float64)

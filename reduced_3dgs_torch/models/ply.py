@@ -3,6 +3,10 @@ read (counterpart of reduced_3dgs_tpu/models/ply.py, numpy only).
 
 One structured array per element, in the byte layout `plyfile` writes, so
 files are interchangeable with the JAX package and the 3DGS ecosystem.
+``write_ply`` and ``read_ply`` go through the native library
+(``native_io``) where it is built and takes the file, else through the
+numpy code here, which defines the behaviour; ``native_io.last_path`` says
+which ran.
 """
 from __future__ import annotations
 
@@ -11,6 +15,8 @@ from collections import OrderedDict
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from . import native_io
 
 _DTYPE_TO_PLY = {
     "i1": "char", "u1": "uchar", "i2": "short", "u2": "ushort",
@@ -23,13 +29,8 @@ _PLY_TO_DTYPE.update({
 })
 
 
-def write_ply(path: str, elements: "OrderedDict[str, np.ndarray]") -> None:
-    """Write a binary_little_endian PLY with one record-array per element.
-
-    Args:
-      path: output file path.
-      elements: ordered mapping element-name -> numpy structured array.
-    """
+def encode_ply(elements: "OrderedDict[str, np.ndarray]") -> Tuple[bytes, List[bytes]]:
+    """The binary_little_endian header and each element's record bytes."""
     header = ["ply", "format binary_little_endian 1.0"]
     for name, arr in elements.items():
         if arr.dtype.names is None:
@@ -40,14 +41,31 @@ def write_ply(path: str, elements: "OrderedDict[str, np.ndarray]") -> None:
             code = base.str.lstrip("<>|=")
             header.append(f"property {_DTYPE_TO_PLY[code]} {field}")
     header.append("end_header\n")
+    return ("\n".join(header).encode("ascii"),
+            [np.ascontiguousarray(arr).tobytes() for arr in elements.values()])
+
+
+def write_ply(path: str, elements: "OrderedDict[str, np.ndarray]") -> None:
+    """Write a binary_little_endian PLY with one record-array per element.
+
+    Args:
+      path: output file path.
+      elements: ordered mapping element-name -> numpy structured array.
+    """
+    header, blobs = encode_ply(elements)
+    if native_io.write_ply_native(path, header, blobs):
+        return
     with open(path, "wb") as f:
-        f.write("\n".join(header).encode("ascii"))
-        for arr in elements.values():
-            f.write(np.ascontiguousarray(arr).tobytes())
+        f.write(header)
+        for blob in blobs:
+            f.write(blob)
 
 
 def read_ply(path: str) -> "OrderedDict[str, np.ndarray]":
     """Read a PLY file; returns ordered mapping element-name -> record array."""
+    out = native_io.read_ply_native(path)
+    if out is not None:
+        return out
     with open(path, "rb") as f:
         data = f.read()
     end = data.find(b"end_header")

@@ -8,9 +8,9 @@ vector-quantizing wrapper (``quantize``), in the JAX package's order. The
 ``camera-*`` modes learn each camera's pose beside the model
 (``trainer.camera_trainer``) and take the camera-trainable model class.
 
-Still to be ported (ROADMAP.md item 22): the ``gsplat-2dgs`` backend, with
-the 2DGS renderer and its model classes. Asking for it raises
-``NotImplementedError``; nothing gives way to another backend.
+Backends: ``cuda``, ``inria`` and ``gsplat`` render the 3DGS model through
+the port's CUDA compositors; ``gsplat-2dgs`` takes the 2DGS model classes,
+which render surfels (``ops/rasterize/twodgs.py``) in every mode.
 """
 from __future__ import annotations
 
@@ -25,11 +25,11 @@ from .combinations import (CameraFullPruningTrainer,
                            SHCullingOpacityResetFullReducedDensificationTrainer)
 from .dataset.colmap import colmap_init
 from .quantization import VectorQuantizeTrainerWrapper
-from .shculling import CameraTrainableVariableSHGaussianModel, VariableSHGaussianModel
+from .shculling import (CameraTrainableVariableSHGaussianModel,
+                        CameraTrainableVariableSHGsplat2DGSGaussianModel,
+                        VariableSHGaussianModel, VariableSHGsplat2DGSGaussianModel)
 from .trainer.extensions import ScaleRegularizeTrainerWrapper
 
-# Every backend but gsplat-2dgs renders the 3DGS model: here, through the
-# port's CUDA compositors.
 backends = ["cuda", "inria", "gsplat", "gsplat-2dgs"]
 
 modes = {
@@ -49,8 +49,8 @@ modes = {
 
 def get_gaussian_model_class(backend: str, trainable_camera: bool = False):
     if backend == "gsplat-2dgs":
-        raise NotImplementedError(f"the {backend!r} backend is not ported yet (ROADMAP.md "
-                                  "item 22: the 2DGS renderer and its model classes)")
+        return (CameraTrainableVariableSHGsplat2DGSGaussianModel if trainable_camera
+                else VariableSHGsplat2DGSGaussianModel)
     if backend in backends:
         return (CameraTrainableVariableSHGaussianModel if trainable_camera
                 else VariableSHGaussianModel)

@@ -2,7 +2,8 @@
 
 Renders every camera of a COLMAP dataset from a trained model's PLY (or,
 with ``--load_quantized``, its ``point_cloud_quantized.ply``), saves the
-images and reports PSNR and SSIM. ``--load_camera`` takes the poses from a
+images and reports PSNR and SSIM, and LPIPS where its weights are there
+(``metrics.lpips_available``). ``--load_camera`` takes the poses from a
 cameras.json (a ``camera-*`` run's learned poses) and the images from the
 dataset, by name. Runs on CUDA unless ``--device cpu`` is given; without a
 GPU and without that flag it raises.
@@ -18,9 +19,11 @@ import numpy as np
 import torch
 
 from .dataset.dataset import prepare_dataset
+from .metrics.lpips import lpips, lpips_available
 from .ops.ssim import ssim
 from .quantization import ExcludeZeroSHQuantizer
 from .shculling import VariableSHGaussianModel
+from .utils.cache import enable_compile_cache
 from .utils.device import resolve_device
 from .utils.math import psnr
 
@@ -33,8 +36,9 @@ def save_image(path: str, img: torch.Tensor) -> None:
 
 @torch.no_grad()
 def render_dataset(model, dataset, out_dir: str, save_images: bool = True):
-    """Render each camera; returns per-image {"psnr", "ssim"} where the
-    camera has a ground-truth image."""
+    """Render each camera; returns per-image {"psnr", "ssim"}, and "lpips"
+    when its weights are available, where the camera has a ground-truth
+    image."""
     os.makedirs(out_dir, exist_ok=True)
     metrics = []
     for i, camera in enumerate(dataset):
@@ -43,10 +47,13 @@ def render_dataset(model, dataset, out_dir: str, save_images: bool = True):
             save_image(os.path.join(out_dir, f"{i:05d}.png"), img)
         gt = camera.ground_truth_image
         if gt is not None:
-            metrics.append({
+            m = {
                 "psnr": float(psnr(img, gt).mean()),
                 "ssim": float(ssim(torch.clamp(img, 0, 1), gt)),
-            })
+            }
+            if lpips_available():
+                m["lpips"] = float(lpips(torch.clamp(img, 0, 1), gt))
+            metrics.append(m)
     return metrics
 
 
@@ -63,6 +70,7 @@ def main(argv=None):
     parser.add_argument("--no_save_images", action="store_true")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    enable_compile_cache()
 
     it_dir = os.path.join(args.destination, "point_cloud", f"iteration_{args.iteration}")
     model = VariableSHGaussianModel(args.sh_degree, device=device)

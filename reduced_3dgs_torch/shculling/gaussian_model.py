@@ -11,7 +11,11 @@ it with ``aux_set``.
 
 ``CameraTrainableVariableSHGaussianModel`` is the model of the ``camera-*``
 modes; the ``*Gsplat*`` names are the JAX registry's aliases of the same
-3DGS classes. The 2DGS classes come with the 2DGS renderer (ROADMAP.md).
+3DGS classes. ``VariableSHGsplat2DGSGaussianModel`` (and its camera-trainable
+twin) keeps the same parameters and reduction state and renders them as
+surfels (``ops/rasterize/twodgs.py``); every caller renders through
+``render``, so training, importance pruning and SH culling all see the
+surfel renderer.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from ..models.gaussian_model import CameraTrainableGaussianModel, GaussianModel
 from ..ops import sh as sh_ops
+from ..ops.rasterize.twodgs import render_tiled_2dgs
 
 
 class VariableSHGaussianModel(GaussianModel):
@@ -81,3 +86,22 @@ class CameraTrainableVariableSHGaussianModel(VariableSHGaussianModel,
 
 VariableSHGsplatGaussianModel = VariableSHGaussianModel
 CameraTrainableVariableSHGsplatGaussianModel = CameraTrainableVariableSHGaussianModel
+
+
+class VariableSHGsplat2DGSGaussianModel(VariableSHGaussianModel):
+    """The variable-SH model rendered as 2D (surfel) Gaussians: the same
+    parameters and reduction features; the third scale is ignored by the
+    renderer."""
+
+    def render(self, camera, mean2d_offset_ndc=None, *, params=None, degrees=None,
+               with_stats: bool = False) -> dict:
+        """As ``GaussianModel.render``, through ``render_tiled_2dgs`` (whose
+        dict adds "normal" and "distortion")."""
+        return render_tiled_2dgs(*self.render_array_args(params, degrees),
+                                 self.render_settings(camera),
+                                 mean2d_offset_ndc=mean2d_offset_ndc, with_stats=with_stats)
+
+
+class CameraTrainableVariableSHGsplat2DGSGaussianModel(VariableSHGsplat2DGSGaussianModel,
+                                                       CameraTrainableGaussianModel):
+    pass

@@ -9,7 +9,9 @@ Usage: python -m reduced_3dgs_torch.train -s <colmap_dir> -d <out_dir>
 trainer (``prepare.prepare_trainer``), writes ``cfg_args`` and
 ``cameras.json``, and runs ``training``. ``-o key=value`` sets any keyword
 of the trainers, the quantizer's included, parsed as a Python literal
-(else kept as a string). ``--device`` defaults to ``cuda`` and raises
+(else kept as a string). Kernels build into the directory that
+``utils.cache.enable_compile_cache`` picks (``$R3DGS_COMPILE_CACHE`` or
+``reduced_3dgs_torch/_build/``). ``--device`` defaults to ``cuda`` and raises
 without a GPU; ``--device cpu`` runs on the CPU. ``--mesh`` (training over
 several devices) raises: ``parallel/`` is not ported yet (ROADMAP.md item
 22).
@@ -42,6 +44,7 @@ import torch
 from .dataset.dataset import CameraDataset, prepare_dataset
 from .prepare import backends, modes, prepare_gaussians, prepare_trainer
 from .trainer import AbstractTrainer
+from .utils.cache import enable_compile_cache
 from .utils.debug import trainer_snapshot
 from .utils.device import resolve_device
 from .utils.math import psnr
@@ -172,6 +175,7 @@ def main(argv=None):
     parser.add_argument("--mesh", default=None, type=str)
     parser.add_argument("-o", "--option", default=[], action="append", type=str)
     args = parser.parse_args(argv)
+    enable_compile_cache()
     if args.mesh:
         raise NotImplementedError("--mesh: training over several devices (parallel/) is not "
                                   "ported yet (ROADMAP.md item 22)")

@@ -3,8 +3,9 @@ train.main, quantize.main, render.main --load_quantized).
 
   * Each of the ten modes, with and without ``quantize`` and
     ``with_scale_reg``, builds the JAX package's onion of wrappers, layer by
-    layer; a camera mode's model class is the camera-trainable one, and
-    only the gsplat-2dgs backend (and ``--mesh``) raise.
+    layer; a camera mode's model class is the camera-trainable one, the
+    gsplat-2dgs backend takes the 2DGS (surfel) classes, and only
+    ``--mesh`` raises.
   * ``train.main --device cpu`` on a tiny COLMAP dataset (3 views of 24x32,
     60 sparse points) writes cfg_args, cameras.json and both PLYs, with
     ``-o`` values parsed as literals; ``quantize.main`` and
@@ -18,6 +19,12 @@ train.main, quantize.main, render.main --load_quantized).
   * ``prepare_dataset(load_camera=...)`` takes the source's images by name
     at the resolution scale, raises on an image whose size is not its
     view's and warns of views without an image.
+  * ``train.main --backend gsplat-2dgs`` runs the flagship and a camera
+    mode on the same dataset against the JAX package's trainer of the same
+    mode and backend, stepped over the same views: N after every step and
+    every removal mask exact and the losses within rtol 1e-4 (the flagship
+    toy run's bars), after a margin on every decision; the flagship's state
+    within the 2DGS gradient bars (below).
 """
 import json
 import os
@@ -38,12 +45,19 @@ from reduced_3dgs_torch.models.ply import read_ply  # noqa: E402
 from reduced_3dgs_torch.shculling import \
     CameraTrainableVariableSHGaussianModel as CameraTModel  # noqa: E402
 from reduced_3dgs_torch.shculling import VariableSHGaussianModel as TModel  # noqa: E402
+from reduced_3dgs_torch.shculling import \
+    CameraTrainableVariableSHGsplat2DGSGaussianModel as CameraTModel2DGS  # noqa: E402
+from reduced_3dgs_torch.shculling import \
+    VariableSHGsplat2DGSGaussianModel as TModel2DGS  # noqa: E402
 from reduced_3dgs_torch.utils.math import psnr  # noqa: E402
 from reduced_3dgs_tpu import prepare as jprepare  # noqa: E402
 
 from .test_torch_fixtures import (jax_dataset, jax_model, random_cloud_np,  # noqa: E402
                                   torch_dataset, torch_model)
-from .test_torch_pruning import onion, write_colmap  # noqa: E402
+from .test_torch_densification import _jax_live  # noqa: E402
+from .test_torch_pruning import (RUN_CONFIG, check_decision_margins,  # noqa: E402
+                                 check_masks_and_row_counts, jax_half, onion, torch_half,
+                                 write_colmap)
 
 MODES = ["densify-shculling", "pruning", "pruning-shculling", "densify-pruning",
          "densify-pruning-shculling", "camera-densify-shculling", "camera-pruning",
@@ -76,7 +90,8 @@ def test_modes_and_backends_match_jax(tmp_path):
     """The ten modes in the JAX package's order; each camera mode is the
     CameraTrainer over its mode without the prefix, with or without
     ``quantize``; ``trainable_camera`` picks the camera-trainable class, and
-    only the gsplat-2dgs backend raises."""
+    the gsplat-2dgs backend picks the 2DGS classes, as JAX's registry
+    does."""
     assert list(tprepare.modes) == list(jprepare.modes)
     params, degrees = random_cloud_np(45, 8)
     ds = torch_dataset([dict(height=16, width=16, fovx=1.0, fovy=1.0,
@@ -91,10 +106,12 @@ def test_modes_and_backends_match_jax(tmp_path):
                                                    mode[len("camera-"):], quantize=quantize)
                 assert onion(t) == onion(base)[:quantize] + ["CameraTrainer"] \
                     + onion(base)[quantize:]
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tprepare.get_gaussian_model_class("gsplat-2dgs")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tprepare.get_gaussian_model_class("gsplat-2dgs", trainable_camera=True)
+    assert tprepare.get_gaussian_model_class("gsplat-2dgs") is TModel2DGS
+    assert tprepare.get_gaussian_model_class("gsplat-2dgs", trainable_camera=True) \
+        is CameraTModel2DGS
+    for trainable_camera in (False, True):
+        assert tprepare.get_gaussian_model_class("gsplat-2dgs", trainable_camera).__name__ == \
+            jprepare.get_gaussian_model_class("gsplat-2dgs", trainable_camera).__name__
     for backend in ("cuda", "inria", "gsplat"):
         assert tprepare.get_gaussian_model_class(backend) is TModel
         assert tprepare.get_gaussian_model_class(backend, trainable_camera=True) \
@@ -261,3 +278,122 @@ def test_train_main_mesh_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="item 22"):
         ttrain.main(["-s", str(tmp_path), "-d", str(tmp_path), "--device", "cpu",
                      "--mesh", "1x2"])
+
+
+# ------------------------------------------------- the 2DGS backend end to end
+TWODGS_STEPS = 12
+# The flagship toy run's schedule: split 3, opacity + mercy prune 5,
+# importance prune 7, SH cull 9, reset 10.
+TWODGS_CONFIG = dict(RUN_CONFIG)
+
+
+def surfel_start(path, seed=52, n=60):
+    """A PLY of n random anisotropic, randomly rotated Gaussians in front of
+    the scene's views. (From the COLMAP start, isotropic scales and identity
+    rotations leave a surfel's turn about its normal without gradient, so
+    each package's Adam steps it by the sign of its own rounding.)"""
+    params, _ = random_cloud_np(seed, n, spread=0.6, z_center=4.0, scale_lo=-3.0, scale_hi=-1.8)
+    params["rotation"] = np.random.default_rng(seed).normal(size=(n, 4)).astype(np.float32)
+    TModel(3, device="cpu").load_numpy(params).save_ply(path)
+    return path
+
+
+def main_vs_jax(src, out, mode, monkeypatch, load_ply, steps=TWODGS_STEPS,
+                config=TWODGS_CONFIG):
+    """``train.main --backend gsplat-2dgs --mode <mode> --device cpu -l
+    <load_ply>`` with ``config`` as -o options, against the JAX package's
+    trainer of that mode and backend from the same dataset and PLY, stepped
+    over the views that ``training``'s shuffle (random.Random(0)) picks; the
+    port's split is fed the JAX draw. Returns the two halves' records
+    (tests/test_torch_pruning)."""
+    import random
+    from reduced_3dgs_tpu import train as jtrain
+    n_views = len(prepare_dataset(src, device="cpu"))
+    rng, order, views = random.Random(0), list(range(n_views)), []
+    for step in range(steps):
+        if step % n_views == 0:
+            rng.shuffle(order)
+        views.append(order[step % n_views])
+    jds, jm, jtr, _ = jtrain.prepare_training(
+        sh_degree=3, source=src, device="cpu", mode=mode,
+        trainable_camera=mode.startswith("camera-"), load_ply=load_ply, backend="gsplat-2dgs",
+        configs=dict(config))
+    j = jax_half(jtr, jm, jds, views)
+    training, halves = ttrain.training, []
+
+    def run(**kwargs):
+        losses = []
+
+        def drive(step):
+            kwargs["trainer"].step = step
+            losses.extend(training(**kwargs))
+
+        halves.append(torch_half(kwargs["trainer"], kwargs["gaussians"], kwargs["dataset"],
+                                 j["capacity"], drive))
+        halves[-1].update(gaussians=kwargs["gaussians"], dataset=kwargs["dataset"])
+        return losses
+
+    monkeypatch.setattr(ttrain, "training", run)
+    argv = ["-s", src, "-d", out, "-i", str(steps), "--device", "cpu", "--backend",
+            "gsplat-2dgs", "--mode", mode, "-l", load_ply]
+    for k, v in config.items():
+        argv += ["-o", f"{k}={v!r}"]
+    losses = ttrain.main(argv)
+    (t,) = halves
+    assert [float(v) for v in losses] == t["t_losses"]
+    return dict(j, **t)
+
+
+def check_2dgs_losses_and_state(run):
+    """Losses within rtol 1e-4. The state after 12 steps within the 2DGS
+    renderer's gradient bars, rtol 2e-3 / atol 3e-5 of max|v|: Adam turns
+    the float32 differences of autograd and XLA's autodiff through the
+    surfel renderer into these. ``max_radii2d`` within 1 px: a surfel
+    smaller than the low-pass pad has the pad's integer half-extent, whose
+    ceil each package takes of its own rounding."""
+    np.testing.assert_allclose(run["t_losses"], run["j_losses"], rtol=1e-4)
+    _, j = _jax_live(run["jtr"])
+    t = run["ttr"].engine.state_trees()
+    for group in ("params", "adam_m", "adam_v", "accum"):
+        for name, v in t[group].items():
+            jv = j[group][name]
+            assert v.shape == jv.shape, (group, name)
+            if name == "max_radii2d":
+                np.testing.assert_allclose(v.numpy(), jv, rtol=0, atol=1)
+                continue
+            np.testing.assert_allclose(v.numpy(), jv, rtol=2e-3, atol=3e-5 * np.abs(jv).max(),
+                                       err_msg=f"{group}/{name}")
+
+
+def test_2dgs_flagship_main_matches_jax(scene, tmp_path, monkeypatch):
+    run = main_vs_jax(scene[0], str(tmp_path / "2dgs"), "densify-pruning-shculling", monkeypatch,
+                      surfel_start(str(tmp_path / "start.ply")))
+    assert type(run["gaussians"]) is TModel2DGS
+    check_decision_margins(run)
+    check_masks_and_row_counts(run)
+    check_2dgs_losses_and_state(run)
+    # The split adds, the opacity/mercy and importance prunes remove, the
+    # cull lowers degrees.
+    assert sorted(run["rec"]["masks"]) == [3, 5, 7]
+    n = run["t_n"]                                 # N after steps 1, 2, ...
+    assert n[1] < n[2] and n[4] < n[3] and n[6] < n[5]
+    assert (run["t_deg"][9] < run["t_deg"][8][:len(run["t_deg"][9])]).any()
+    saved = TModel2DGS(3, device="cpu").load_ply(
+        os.path.join(str(tmp_path / "2dgs"), "point_cloud", f"iteration_{TWODGS_STEPS}",
+                     "point_cloud.ply"))
+    assert saved.num_points == run["t_n"][-1]
+
+
+def test_2dgs_camera_mode_main_matches_jax(scene, tmp_path, monkeypatch):
+    run = main_vs_jax(scene[0], str(tmp_path / "2dgs_camera"),
+                      "camera-densify-pruning-shculling", monkeypatch,
+                      surfel_start(str(tmp_path / "start.ply"), seed=50))
+    assert type(run["gaussians"]) is CameraTModel2DGS
+    assert type(run["ttr"]).__name__ == "CameraTrainer"
+    assert len(run["ttr"]._cam_params) == 3
+    check_decision_margins(run)
+    check_masks_and_row_counts(run)
+    np.testing.assert_allclose(run["t_losses"], run["j_losses"], rtol=1e-4)
+    for cam in run["dataset"]:
+        delta = run["ttr"]._cam_params[id(cam)]["trans"].detach()
+        assert float(delta.abs().max()) > 0

@@ -32,9 +32,10 @@ from reduced_3dgs_torch import pruning as tpruning  # noqa: E402
 from reduced_3dgs_torch.dataset.colmap import colmap_init as t_colmap_init  # noqa: E402
 from reduced_3dgs_torch.importance import trainer as timp  # noqa: E402
 from reduced_3dgs_torch.ops import knn as tk  # noqa: E402
-from reduced_3dgs_torch.ops.rasterize import common  # noqa: E402
+from reduced_3dgs_torch.ops.rasterize import common, twodgs  # noqa: E402
 from reduced_3dgs_torch.pruning import trainer as tp  # noqa: E402
 from reduced_3dgs_torch.shculling import VariableSHGaussianModel as TModel  # noqa: E402
+from reduced_3dgs_torch.shculling import VariableSHGsplat2DGSGaussianModel  # noqa: E402
 from reduced_3dgs_torch.shculling import trainer as tsh  # noqa: E402
 from reduced_3dgs_tpu import combinations as jcomb  # noqa: E402
 from reduced_3dgs_tpu import pruning as jpruning  # noqa: E402
@@ -223,19 +224,10 @@ def _flagship(package):
     return build
 
 
-def flagship_run(jax_build=_flagship(jcomb), torch_build=_flagship(tcomb)):
-    """The toy run in both packages: JAX step by step, then the port fed
-    the JAX draw, with each decision's inputs recorded. ``jax_build`` and
-    ``torch_build`` make each package's trainer from (model, dataset)."""
-    params, degrees, cams, images, depths = toy_scene(with_depth=True)
-    depths = [depths[0], None, None]
-    order = [i % 3 for i in range(RUN_STEPS)]
-
-    # JAX, step by step, with the capacity its split draws at and every
-    # removal mask.
-    jm = jax_model(params, degrees)
-    jds = jax_dataset(cams, images, depths)
-    jtr = jax_build(jm, jds)
+def jax_half(jtr, jm, jds, views):
+    """Step the JAX trainer over the cameras ``views`` (indices into
+    ``jds``), recording the capacity its split draws at, every removal mask,
+    the mercy masks, the losses, N and the degrees after each step."""
     j_dt, _, j_split = _layers(jtr)
     capacity, j_masks, j_mercy = {}, {}, {}
     j_split_fn, j_apply = j_split.densify_and_prune, j_dt.apply_instruction
@@ -262,17 +254,30 @@ def flagship_run(jax_build=_flagship(jcomb), torch_build=_flagship(tcomb)):
     mp.setattr(jp, "mercy_gaussians", j_record_mercy)
     j_losses, j_n, j_deg = [], [], {}
     try:
-        for it in range(RUN_STEPS):
-            j_losses.append(float(jtr.step(jds[order[it]])[0]))
+        for it, view in enumerate(views):
+            j_losses.append(float(jtr.step(jds[view])[0]))
             j_n.append(jm.num_points)
             j_deg[it + 1] = np.asarray(jm.aux_state()["degrees"])[:jm.num_points]
     finally:
         mp.undo()
+    return dict(jtr=jtr, capacity=capacity, j_masks=j_masks, j_mercy=j_mercy,
+                j_losses=j_losses, j_n=j_n, j_deg=j_deg)
 
-    # The port, fed the JAX draw, with each decision's inputs recorded.
-    tm = torch_model(params, degrees)
-    tds = torch_dataset(cams, images, depths)
-    ttr = torch_build(tm, tds)
+
+def _view_depths(model, camera):
+    """(depths, rect_min, rect_max, seen) of the renderer the model uses."""
+    with torch.no_grad():
+        if isinstance(model, VariableSHGsplat2DGSGaussianModel):
+            pre = twodgs.preprocess_2dgs(*model.render_array_args(), model.render_settings(camera))
+            return pre["depths"], pre["rect_min"], pre["rect_max"], pre["tiles_touched"] > 0
+        pre = common.preprocess(*model.render_array_args(), model.render_settings(camera))
+        return pre.depths, pre.rect_min, pre.rect_max, pre.tiles_touched > 0
+
+
+def torch_half(ttr, tm, tds, capacity, drive):
+    """The port's half: the split fed the JAX draw at ``capacity``, each
+    decision's inputs recorded, and the losses, N and degrees after each
+    step. ``drive(step)`` runs the steps, calling ``step(camera)``."""
     t_dt, t_pruner, t_split = _layers(ttr)
     k = t_split.densify_n_split
     t_split.draw_samples = lambda n, step: _jax_draw(capacity[step], step, n, k)
@@ -321,30 +326,53 @@ def flagship_run(jax_build=_flagship(jcomb), torch_build=_flagship(tcomb)):
     t_forward = ttr.engine.forward_loss
 
     def t_record_forward(loss_fn, camera, extras):
-        with torch.no_grad():
-            pre = common.preprocess(*tm.render_array_args(), tm.render_settings(camera))
-        rec["depth"].append((pre.depths, pre.rect_min, pre.rect_max, pre.tiles_touched > 0))
+        rec["depth"].append(_view_depths(tm, camera))
         return t_forward(loss_fn, camera, extras)
 
     t_split.densify_and_prune = t_record_split
     t_pruner.prune = t_record_prune
     t_dt.apply_instruction = t_record_apply
     ttr.engine.forward_loss = t_record_forward
+    t_losses, t_n, t_deg = [], [], {}
+    t_step = ttr.step
+
+    def step(camera):
+        result = t_step(camera)
+        t_losses.append(float(result[0]))
+        t_n.append(tm.num_points)
+        t_deg[len(t_losses)] = tm._degrees.clone().numpy()
+        return result
+
     mp = pytest.MonkeyPatch()
     mp.setattr(tp, "mercy_gaussians", t_record_mercy)
     mp.setattr(timp, "prune_list", t_record_prune_list)
     mp.setattr(tsh, "calculate_colours_variance", t_record_colours)
-    t_losses, t_n, t_deg = [], [], {}
     try:
-        for it in range(RUN_STEPS):
-            t_losses.append(float(ttr.step(tds[order[it]])[0]))
-            t_n.append(tm.num_points)
-            t_deg[it + 1] = tm._degrees.clone().numpy()
+        drive(step)
     finally:
         mp.undo()
-    return dict(jtr=jtr, ttr=ttr, tds=tds, j_losses=j_losses, t_losses=t_losses, j_n=j_n,
-                t_n=t_n, j_deg=j_deg, t_deg=t_deg, j_masks=j_masks, j_mercy=j_mercy, rec=rec,
-                k=k, split=t_split, pruner=t_pruner)
+    return dict(ttr=ttr, tds=tds, t_losses=t_losses, t_n=t_n, t_deg=t_deg, rec=rec, k=k,
+                split=t_split, pruner=t_pruner)
+
+
+def flagship_run(jax_build=_flagship(jcomb), torch_build=_flagship(tcomb)):
+    """The toy run in both packages: JAX step by step, then the port fed
+    the JAX draw, with each decision's inputs recorded. ``jax_build`` and
+    ``torch_build`` make each package's trainer from (model, dataset)."""
+    params, degrees, cams, images, depths = toy_scene(with_depth=True)
+    depths = [depths[0], None, None]
+    order = [i % 3 for i in range(RUN_STEPS)]
+    jm = jax_model(params, degrees)
+    jds = jax_dataset(cams, images, depths)
+    j = jax_half(jax_build(jm, jds), jm, jds, order)
+    tm = torch_model(params, degrees)
+    tds = torch_dataset(cams, images, depths)
+
+    def drive(step):
+        for it in range(RUN_STEPS):
+            step(tds[order[it]])
+
+    return dict(j, **torch_half(torch_build(tm, tds), tm, tds, j["capacity"], drive))
 
 
 @pytest.fixture(scope="module")
