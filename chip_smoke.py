@@ -95,6 +95,23 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            allowed), and render.main reporting it; (f) the native PLY
            writer and reader against numpy at the bench scene; (g)
            utils.profiling's trace and time_fn
+  phase 13 the band viewport and parallel/: (a) the bench scene rendered
+           as the bands of 2, 3 and 4 tile ranks in turn through
+           render_band, stitched, against one full render (colour, T,
+           depth), the bands' entry counts summing to the image's, their
+           statistics summing to the image's, and the loss gradient
+           through the spliced bands against the full render's, with the
+           compositors' launches (n bands, n launches); the 2DGS model's
+           bands, which launch none; (b) train.main in the flagship mode for
+           20 steps from phase 9's start and calibration, with one densify
+           event and one importance sweep, and with --mesh 1x1 (the sharded
+           trainer on a world of one) for 10 steps, the same losses; (c) the
+           same run over two processes on the card, over gloo, with --mesh
+           1x2 (each camera in two bands) and --mesh 2x1 (two cameras a
+           step), started as ``chip_smoke.py --mesh-rank`` with torchrun's
+           variables: both ranks' replicas bitwise equal, N moving at the
+           events, each rank's launches, the 1x2 run's losses against the
+           single process's, and the step times
 
 Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
@@ -103,6 +120,7 @@ line. The last two lines are a JSON record of each kernel and
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -260,6 +278,31 @@ TOL_TILE = 1e-5
 VIEWER_REQUESTS = 8
 VIEWER_HEIGHT, VIEWER_WIDTH = 544, 960
 TOL_LPIPS = 1e-6
+# Phase 13: the bands of 2, 3 and 4 tile ranks against the full render
+# (colour, T and depth within 1e-5: JAX tests/test_parallel.py:33; the 2DGS
+# bands within 1e-5 of each output's largest value, TOL_TILE's bar: the
+# surfel compositor's per-tile sums are index_add_'s float atomics, whose
+# last bits vary from render to render), and the loss gradient through them
+# within the backward compositor's bars; the flagship through train.main for 20 steps
+# with one densify event (after step 10) and one importance sweep (after
+# step 15), in one process, with --mesh 1x1 for 10 steps (losses within
+# 1e-6, relative) and over two processes on the card with --mesh 1x2 and
+# 2x1, each with its own time limit; the 1x2 run's losses within the
+# gradient bars' 2e-3 of the single process's, and N within 1e-3.
+BAND_TILES = (2, 3, 4)
+TOL_BAND = 1e-5
+BAND_GRAD_RTOL, BAND_GRAD_ATOL = 2e-3, 3e-5
+MESH_STEPS, MESH_ONE_BY_ONE_STEPS = 20, 10
+MESH_CONFIG = dict(densify_from_iter=10, densify_until_iter=10, densify_interval=10,
+                   prune_from_iter=100, prune_until_iter=100, prune_interval=100,
+                   importance_prune_from_iter=15, importance_prune_until_iter=15,
+                   importance_prune_interval=15, opacity_reset_interval=100,
+                   opacity_reset_until_iter=100, cull_at_steps=[100], sh_degree_up_interval=4)
+M_SPLIT, M_IMPORTANCE = 10, 15
+MESHES = ("1x2", "2x1")
+MESH_TIMEOUT = 240
+TOL_ONE_BY_ONE_REL = 1e-6
+MESH_LOSS_RTOL, MESH_N_REL = 2e-3, 1e-3
 
 
 def log(msg):
@@ -2326,6 +2369,298 @@ def profiling_phase(card, params_p, src, tmp):
         raise AssertionError("phase 12 (g): the trace or time_fn failed")
 
 
+def counted(wrappers, fn):
+    """(fn(), the compositors' launches during it): every count set to 0
+    just before and read just after, the card synchronised."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def band_phase(card, params, params_p, camera, loss_cam, gt, wrappers):
+    """Phase 13 (a): the bench scene rendered as the bands of 2, 3 and 4
+    tile ranks in turn, in one process, through render_band, against one
+    full render: the stitched colour, T and depth, the bands' entry counts,
+    their statistics and the gradient of the full image's loss through the
+    spliced bands, with the compositors' launches; then the 2DGS model's
+    bands."""
+    from reduced_3dgs_torch.ops.ssim import ssim
+    from reduced_3dgs_torch.parallel.sharding import band_layout
+    from reduced_3dgs_torch.shculling import (VariableSHGaussianModel,
+                                              VariableSHGsplat2DGSGaussianModel)
+    from reduced_3dgs_torch.utils.math import l1_loss
+    dev = torch.device("cuda")
+    model = VariableSHGaussianModel(3, device=dev).load_numpy(params)
+    model_p = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
+    failures = []
+
+    def stitch(bands, key):
+        dim = 1 if key == "render" else 0
+        return torch.cat([b[key] for b in bands], dim=dim).narrow(dim, 0, HEIGHT)
+
+    def gradients(render):
+        """The loss gradient of every parameter and of the screen-space
+        offset, for the image render(offset) of the perturbed model."""
+        offset = torch.zeros((model_p.num_points, 2), device=dev, requires_grad=True)
+        img = render(offset)
+        loss = 0.8 * l1_loss(img, gt) + 0.2 * (1.0 - ssim(img, gt))
+        leaves = dict(model_p.param_dict(), mean2d_offset=offset)
+        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    with torch.no_grad():
+        full = model(camera)
+        full_stats = model(camera, with_stats=True)
+    g_full = gradients(lambda off: model_p.render(loss_cam, off)["render"])
+    for n_tile in BAND_TILES:
+        rows = band_layout(HEIGHT, n_tile)[0]
+        starts = [r * rows for r in range(n_tile)]
+        with torch.no_grad():
+            bands, launches = counted(
+                wrappers, lambda: [model.render_band(camera, s, rows) for s in starts])
+            stats, s_launches = counted(wrappers, lambda: [
+                model.render_band(camera, s, rows, with_stats=True) for s in starts])
+        err = {k: float((stitch(bands, k) - full[k]).abs().max())
+               for k in ("render", "final_T", "depth")}
+        k_bands = [b["num_rendered"] for b in bands]
+        counts_equal = all(torch.equal(sum(s[k] for s in stats), full_stats[k])
+                           for k in ("gaussians_count", "touched_pixels"))
+        score_err = max(float((sum(s[k] for s in stats) - full_stats[k]).abs().max())
+                        / float(full_stats[k].abs().max())
+                        for k in ("opacity_important_score", "T_alpha_important_score",
+                                  "transmittance_sum"))
+        g_band, g_launches = counted(wrappers, lambda: gradients(lambda off: torch.cat(
+            [model_p.render_band(loss_cam, s, rows, off)["render"] for s in starts],
+            dim=1)[:, :HEIGHT]))
+        g_worst = max(float(((g_band[k] - g).abs() - BAND_GRAD_RTOL * g.abs()).max())
+                      / float(g.abs().max()) for k, g in g_full.items())
+        log(f"phase 13 [{card}]: {n_tile} bands of {rows} tile rows (padded height "
+            f"{rows * 16 * n_tile}): max |stitched - full| colour {err['render']:.3e}, T "
+            f"{err['final_T']:.3e}, depth {err['depth']:.3e}; K per band {k_bands}, sum "
+            f"{sum(k_bands)} against {full['num_rendered']}; launches {launches}; statistics "
+            f"counts equal {counts_equal}, scores' worst |diff| / max {score_err:.3e}, launches "
+            f"{s_launches}; gradient through the spliced bands against the full render's: "
+            f"worst (|diff| - {BAND_GRAD_RTOL} |g|) / max|g| {g_worst:.3e} (bar "
+            f"{BAND_GRAD_ATOL}), launches {g_launches}")
+        if max(err.values()) > TOL_BAND:
+            failures.append(f"{n_tile} bands differ from the full render: {err}")
+        if sum(k_bands) != full["num_rendered"]:
+            failures.append(f"{n_tile} bands hold {sum(k_bands)} entries, the image "
+                            f"{full['num_rendered']}")
+        if launches != {"composite_fwd": n_tile, "composite_fwd_stats": 0, "composite_bwd": 0}:
+            failures.append(f"{n_tile} band renders launched {launches}")
+        if not counts_equal or score_err > TOL_STATS_REL:
+            failures.append(f"{n_tile} bands' statistics: counts equal {counts_equal}, "
+                            f"scores {score_err:.3e}")
+        if s_launches != {"composite_fwd": 0, "composite_fwd_stats": n_tile, "composite_bwd": 0}:
+            failures.append(f"{n_tile} band statistics renders launched {s_launches}")
+        if not g_worst <= BAND_GRAD_ATOL:
+            failures.append(f"{n_tile} bands' gradient {g_worst:.3e}")
+        if g_launches != {"composite_fwd": n_tile, "composite_fwd_stats": 0,
+                          "composite_bwd": n_tile}:
+            failures.append(f"{n_tile} bands' gradient launched {g_launches}")
+        del bands, stats, g_band
+    del model_p, g_full, full_stats
+    torch.cuda.empty_cache()
+
+    model2 = VariableSHGsplat2DGSGaussianModel(3, device=dev).load_numpy(params)
+    keys = ("render", "final_T", "depth")
+    with torch.no_grad():
+        full2, again = model2(camera), model2(camera)
+        scale = {k: float(full2[k].abs().max()) for k in keys}
+        noise = {k: float((again[k] - full2[k]).abs().max()) / scale[k] for k in keys}
+        del again
+        for n_tile in BAND_TILES:
+            rows = band_layout(HEIGHT, n_tile)[0]
+            bands, launches = counted(wrappers, lambda: [
+                model2.render_band(camera, r * rows, rows) for r in range(n_tile)])
+            err = {k: float((stitch(bands, k) - full2[k]).abs().max()) / scale[k] for k in keys}
+            log(f"phase 13 [{card}]: 2DGS, {n_tile} bands: max |stitched - full| / max|full| "
+                f"colour {err['render']:.3e}, T {err['final_T']:.3e}, depth {err['depth']:.3e} "
+                f"(bar {TOL_TILE}; a second full render differs from the first by "
+                f"{noise['render']:.3e}, {noise['final_T']:.3e}, {noise['depth']:.3e}); "
+                f"launches {launches}")
+            if max(err.values()) > TOL_TILE:
+                failures.append(f"2DGS: {n_tile} bands differ from the full render: {err}")
+            if any(launches.values()):
+                failures.append(f"2DGS bands launched {launches}")
+    if failures:
+        raise AssertionError("phase 13 (a): " + "; ".join(failures))
+
+
+def record_main(argv, wrappers):
+    """train.main(argv) with, after every step, N and the step's time (CUDA
+    events), and the compositors' launches over the training run: a dict
+    with "n", "ms", "losses", "launches", "engine" (the engine's class),
+    "mesh" and the final model's parameters and degrees on the host."""
+    from reduced_3dgs_torch import train
+    from reduced_3dgs_torch.trainer import AbstractTrainer
+    rec = {"n": [], "ms": [], "events": []}
+    training, step = train.training, AbstractTrainer.step
+
+    def keep(**kwargs):
+        rec["model"], rec["trainer"] = kwargs["gaussians"], kwargs["trainer"]
+        for w in wrappers.values():
+            w.launches = 0
+        out = training(**kwargs)
+        torch.cuda.synchronize()
+        rec["launches"] = {name: w.launches for name, w in wrappers.items()}
+        return out
+
+    def timed_step(self, cameras):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(self, cameras)
+        end.record()
+        rec["events"].append((start, end))
+        rec["n"].append(rec["model"].num_points)
+        return out
+
+    train.training, AbstractTrainer.step = keep, timed_step
+    try:
+        losses = train.main(argv)
+    finally:
+        train.training, AbstractTrainer.step = training, step
+    model, engine = rec.pop("model"), rec.pop("trainer").engine
+    rec["ms"] = [a.elapsed_time(b) for a, b in rec.pop("events")]
+    mesh = getattr(engine, "mesh", None)
+    return dict(rec, losses=torch.stack(losses).cpu().tolist(), engine=type(engine).__name__,
+                mesh=None if mesh is None else dict(mesh.shape),
+                degrees=model._degrees.cpu(),
+                params={k: p.detach().cpu() for k, p in model.param_dict().items()})
+
+
+def mesh_rank(result_path, argv):
+    """One rank of phase 13 (c), started by mesh_phase with RANK,
+    WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR and MASTER_PORT:
+    record_main(argv), saved to result_path."""
+    from reduced_3dgs_torch.ops.rasterize import composite
+    wrappers = {"composite_fwd": composite.composite_fwd,
+                "composite_fwd_stats": composite.composite_fwd_stats,
+                "composite_bwd": composite.composite_bwd}
+    torch.save(record_main(argv, wrappers), result_path)
+    return 0
+
+
+def mesh_phase(card, params_p, src, wrappers, tmp, dense_config):
+    """Phase 13 (b) and (c): train.main in the flagship mode for MESH_STEPS
+    steps from phase 9's start (one densify event, one importance sweep), in
+    this process, then with --mesh 1x1 for MESH_ONE_BY_ONE_STEPS steps
+    (ShardedTrainer on a world of one: the same losses), then over two
+    processes on this card with --mesh 1x2 and --mesh 2x1 (gloo): both
+    ranks' parameters bitwise equal, N moving at the events, each rank's
+    launches, and the step times."""
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    dev = torch.device("cuda")
+    failures = []
+    start_ply = os.path.join(tmp, "mesh_start", "point_cloud.ply")
+    VariableSHGaussianModel(3, device=dev).load_numpy(params_p).save_ply(start_ply)
+    config = dict(MESH_CONFIG, **{k: dense_config[k] for k in (
+        "densify_grad_threshold", "densify_percent_dense", "prune_percent_too_big")})
+
+    def argv(name, steps, mesh=None):
+        args = ["-s", src, "-d", os.path.join(tmp, f"mesh_{name}"), "-i", str(steps),
+                "-l", start_ply, "--save_iterations", str(steps)]
+        for k, v in config.items():
+            args += ["-o", f"{k}={v!r}"]
+        return args + (["--mesh", mesh] if mesh else [])
+
+    def ordinary_ms(run):
+        return statistics.median(ms for s, ms in enumerate(run["ms"], 1)
+                                 if s > 1 and s not in (M_SPLIT, M_IMPORTANCE))
+
+    def n_moves(run):
+        return [s for s in range(2, len(run["n"]) + 1) if run["n"][s - 1] != run["n"][s - 2]]
+
+    t0 = time.perf_counter()
+    single = record_main(argv("single", MESH_STEPS), wrappers)
+    torch.cuda.empty_cache()
+    one = record_main(argv("1x1", MESH_ONE_BY_ONE_STEPS, "1x1"), wrappers)
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(one["losses"], single["losses"]))
+    log(f"phase 13 [{card}]: train.main flagship, {MESH_STEPS} steps in one process: N "
+        f"{single['n'][0]} -> {single['n'][-1]}, N moves after steps {n_moves(single)}, median "
+        f"ordinary step {ordinary_ms(single):.4f} ms, launches {single['launches']}; --mesh 1x1 "
+        f"({one['engine']}, mesh {one['mesh']}) for {MESH_ONE_BY_ONE_STEPS} steps: worst "
+        f"relative loss difference {rel:.3e} (bar {TOL_ONE_BY_ONE_REL}), launches "
+        f"{one['launches']}; {time.perf_counter() - t0:.1f} s")
+    if n_moves(single) != [M_SPLIT, M_IMPORTANCE]:
+        failures.append(f"single process: N moved after steps {n_moves(single)}")
+    if one["engine"] != "ShardedTrainer" or one["mesh"] != {"data": 1, "tile": 1}:
+        failures.append(f"--mesh 1x1 trained with {one['engine']} on {one['mesh']}")
+    if not rel <= TOL_ONE_BY_ONE_REL:
+        failures.append(f"--mesh 1x1 losses differ from the single process's by {rel:.3e}")
+    expected = {"composite_fwd": MESH_STEPS, "composite_bwd": MESH_STEPS,
+                "composite_fwd_stats": N_VIEWS}
+    if single["launches"] != expected:
+        failures.append(f"single process launched {single['launches']}, expected {expected}")
+
+    for mesh in MESHES:
+        t0 = time.perf_counter()
+        n_data, n_tile = (int(x) for x in mesh.split("x"))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        paths = [os.path.join(tmp, f"mesh_{mesh}_rank{r}.pt") for r in range(2)]
+        procs = []
+        try:
+            for rank in range(2):
+                # The host's cores shared between the two ranks.
+                env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                           LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                           OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2)))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--mesh-rank", paths[rank],
+                     *argv(mesh, MESH_STEPS, mesh)],
+                    env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            logs = [p.communicate(timeout=MESH_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"phase 13: --mesh {mesh} rank {rank} exited "
+                                     f"{p.returncode}:\n{out[-3000:]}")
+        runs = [torch.load(p, weights_only=False) for p in paths]
+        equal = (all(torch.equal(runs[0]["params"][k], runs[1]["params"][k])
+                     for k in runs[0]["params"])
+                 and torch.equal(runs[0]["degrees"], runs[1]["degrees"])
+                 and runs[0]["losses"] == runs[1]["losses"] and runs[0]["n"] == runs[1]["n"])
+        run = runs[0]
+        expected = {"composite_fwd": MESH_STEPS, "composite_bwd": MESH_STEPS,
+                    "composite_fwd_stats": -(-N_VIEWS // n_data)}
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], single["losses"]))
+        n_rel = max(abs(a - b) / b for a, b in zip(run["n"], single["n"]))
+        log(f"phase 13 [{card}]: train.main --mesh {mesh}, two processes on one card over "
+            f"gloo, {MESH_STEPS} steps in {time.perf_counter() - t0:.1f} s: engine "
+            f"{run['engine']}, mesh {run['mesh']}; ranks' parameters, degrees, losses and N "
+            f"bitwise equal {equal}; N {run['n'][0]} -> {run['n'][-1]}, moves after steps "
+            f"{n_moves(run)}; N after each step against the single process's, worst relative "
+            f"difference {n_rel:.3e}; losses against the single process's, worst relative "
+            f"difference {loss_rel:.3e}; launches per rank {[r['launches'] for r in runs]}; "
+            f"median ordinary step per rank {[round(ordinary_ms(r), 4) for r in runs]} ms "
+            f"against the single process's {ordinary_ms(single):.4f} ms")
+        if not equal:
+            failures.append(f"--mesh {mesh}: the ranks' replicas differ")
+        if run["engine"] != "ShardedTrainer" or run["mesh"] != {"data": n_data, "tile": n_tile}:
+            failures.append(f"--mesh {mesh} trained with {run['engine']} on {run['mesh']}")
+        if n_moves(run) != n_moves(single):
+            failures.append(f"--mesh {mesh}: N moved after steps {n_moves(run)}")
+        if any(r["launches"] != expected for r in runs):
+            failures.append(f"--mesh {mesh} launched {[r['launches'] for r in runs]}, "
+                            f"expected {expected} per rank")
+        if not all(map(math.isfinite, run["losses"])):
+            failures.append(f"--mesh {mesh}: losses {run['losses']}")
+        if mesh == "1x2" and not (loss_rel <= MESH_LOSS_RTOL and n_rel <= MESH_N_REL):
+            failures.append(f"--mesh 1x2 against the single process: losses {loss_rel:.3e}, "
+                            f"N {n_rel:.3e}")
+    if failures:
+        raise AssertionError("phase 13 (b, c): " + "; ".join(failures))
+
+
 def card_name():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2337,6 +2672,8 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2], sys.argv[3:])
     with tempfile.TemporaryDirectory() as tmp:
         return run(tmp)
 
@@ -2816,6 +3153,14 @@ def run(tmp):
     profiling_phase(card, params_p, src, tmp)
     torch.cuda.empty_cache()
     log(f"phase 12 [{card}]: {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- phase 13
+    t0 = time.perf_counter()
+    band_phase(card, params, params_p, cameras[0], loss_cam, gt_loss, wrappers)
+    torch.cuda.empty_cache()
+    mesh_phase(card, params_p, src, wrappers, tmp, dense_config)
+    torch.cuda.empty_cache()
+    log(f"phase 13 [{card}]: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{

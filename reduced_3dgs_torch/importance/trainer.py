@@ -9,10 +9,10 @@ lowest are pruned. All scoring policies and defaults are the JAX
 package's (and the reference's): important_score, v_important_score,
 max_v_important_score, count, T_alpha, T_alpha_avg and comprehensive.
 
-Not ported: the sharded sweep over a device mesh (``mesh``), which comes
-with ``parallel/``, and ``_sweep_counts``, the JAX package's one-program
-scan over the stacked cameras with key-buffer regrowth: the port renders
-camera by camera.
+When the trainer's engine has a device mesh (``parallel.ShardedTrainer``),
+the sweep runs over it (``parallel.stats.sharded_prune_list``). Not ported:
+``_sweep_counts``, the JAX package's one-program scan over the stacked
+cameras with key-buffer regrowth: the port renders camera by camera.
 """
 from __future__ import annotations
 
@@ -39,22 +39,32 @@ def count_render(model, camera: Camera) -> dict:
     }
 
 
-def prune_list(model, dataset, resize: Optional[int] = None):
+def resized_camera(camera: Camera, resize: Optional[int], device) -> Camera:
+    """``camera`` at its aspect ratio with ``resize`` pixels along its
+    longer side (itself when ``resize`` is None)."""
+    if resize is None:
+        return camera
+    height, width = camera.image_height, camera.image_width
+    scale = resize / max(height, width)
+    return build_camera(int(height * scale), int(width * scale), camera.FoVx, camera.FoVy,
+                        R=camera.R, T=camera.T, device=device)
+
+
+def prune_list(model, dataset, resize: Optional[int] = None, mesh=None):
     """(count int32, opacity score, T_alpha score), each [N], summed over
     every camera of ``dataset``. With ``resize``, each camera is rendered at
-    its aspect ratio with ``resize`` pixels along its longer side."""
+    its aspect ratio with ``resize`` pixels along its longer side. With
+    ``mesh`` (a ``parallel.Mesh``), the sweep runs sharded over it."""
+    if mesh is not None:
+        from ..parallel.stats import sharded_prune_list
+        return sharded_prune_list(model, dataset, mesh, resize)
     n = model.num_points
     device = model._xyz.device
     gaussian_count = torch.zeros((n,), dtype=torch.int32, device=device)
     opacity_score = torch.zeros((n,), dtype=torch.float32, device=device)
     t_alpha_score = torch.zeros((n,), dtype=torch.float32, device=device)
     for camera in dataset:
-        if resize is not None:
-            height, width = camera.image_height, camera.image_width
-            scale = resize / max(height, width)
-            camera = build_camera(int(height * scale), int(width * scale), camera.FoVx,
-                                  camera.FoVy, R=camera.R, T=camera.T, device=device)
-        out = count_render(model, camera)
+        out = count_render(model, resized_camera(camera, resize, device))
         gaussian_count += out["gaussians_count"]
         opacity_score += out["opacity_important_score"]
         t_alpha_score += out["T_alpha_important_score"]
@@ -87,11 +97,13 @@ def prune_gaussians(gaussians, dataset, resize: Optional[int] = None,
                     prune_thr_important_score=None, prune_thr_v_important_score=None,
                     prune_thr_max_v_important_score=None, prune_thr_count=None,
                     prune_thr_T_alpha=None, prune_thr_T_alpha_avg=None,
-                    v_pow: float = 0.1) -> torch.Tensor:
+                    v_pow: float = 0.1, mesh=None) -> torch.Tensor:
     """The [N] bool removal mask of importance type ``prune_type``; raises
     ValueError for an unknown type. ``comprehensive`` ORs the masks of every
-    type whose threshold is given."""
-    gaussian_list, opacity_imp_list, t_alpha_imp_list = prune_list(gaussians, dataset, resize)
+    type whose threshold is given. ``mesh`` shards the sweep."""
+    gaussian_list, opacity_imp_list, t_alpha_imp_list = (
+        prune_list(gaussians, dataset, resize) if mesh is None
+        else prune_list(gaussians, dataset, resize, mesh=mesh))
     glist = gaussian_list.to(torch.float32)
 
     def t_alpha_avg():
@@ -164,12 +176,13 @@ class ImportancePruner(DensifierWrapper):
         ret = super().densify_and_prune(loss, out, camera, step)
         if (self.importance_prune_from_iter <= step <= self.importance_prune_until_iter
                 and step % self.importance_prune_interval == 0):
+            # A sharded engine sweeps over its own mesh.
             remove_mask = prune_gaussians(
                 self.trainer.model, self.dataset, self.resize, self.prune_type,
                 self.prune_percent, self.prune_thr_important_score,
                 self.prune_thr_v_important_score, self.prune_thr_max_v_important_score,
                 self.prune_thr_count, self.prune_thr_T_alpha, self.prune_thr_T_alpha_avg,
-                self.v_pow)
+                self.v_pow, mesh=getattr(self.trainer.engine, "mesh", None))
             ret = ret.merge_remove(remove_mask)
         return ret
 

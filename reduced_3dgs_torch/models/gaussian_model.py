@@ -9,7 +9,9 @@ mean2d_offset_ndc)`` is the same render with the trainer's screen-space
 offset; both are differentiable in the parameters unless ``with_stats``.
 ``render`` also renders from explicit parameters and degrees that are not
 the model's own (the JAX model's functional ``render(params, camera,
-aux)``), which SH culling needs. ``mark_visible`` is the near-plane test
+aux)``), which SH culling needs. ``render_band`` renders one band of tile
+rows (the multi-device trainer's and sweeps' one dispatch point, JAX
+models/gaussian_model.py:268-290). ``mark_visible`` is the near-plane test
 of each centre. PLY files use the
 standard 3DGS layout, so the JAX package reads what this writes and the
 other way round.
@@ -181,16 +183,33 @@ class GaussianModel(nn.Module):
                mean2d_offset_ndc: Optional[torch.Tensor] = None, *,
                params: Optional[Dict[str, torch.Tensor]] = None,
                degrees: Optional[torch.Tensor] = None,
-               with_stats: bool = False) -> dict:
+               with_stats: bool = False, tile_row_offset: int = 0,
+               tile_rows: Optional[int] = None) -> dict:
         """Render from ``params`` and ``degrees`` (the model's own when
         None), differentiably unless ``with_stats`` (the counterpart of the
         JAX model's functional ``render``; every row is alive, as the port
         keeps no capacity padding). ``mean2d_offset_ndc`` [N,2] is the zero
         offset whose gradient is the screen-space gradient the trainer
-        accumulates."""
+        accumulates. ``tile_rows`` renders the band of that many tile rows
+        from ``tile_row_offset`` (see ``render_tiled``)."""
         return render_tiled(*self.render_array_args(params, degrees),
                             self.render_settings(camera),
-                            mean2d_offset_ndc=mean2d_offset_ndc, with_stats=with_stats)
+                            mean2d_offset_ndc=mean2d_offset_ndc, with_stats=with_stats,
+                            tile_row_offset=tile_row_offset, tile_rows=tile_rows)
+
+    def render_band(self, camera: Camera, tile_row_offset: int, tile_rows: int,
+                    mean2d_offset_ndc: Optional[torch.Tensor] = None, *,
+                    params: Optional[Dict[str, torch.Tensor]] = None,
+                    degrees: Optional[torch.Tensor] = None,
+                    with_stats: bool = False) -> dict:
+        """The band of ``tile_rows`` tile rows from the image's tile row
+        ``tile_row_offset``, rendered as ``render`` renders the image (the
+        projection is the full image's): the one call through which the
+        sharded trainer and sweeps render, so that every model family shards
+        the same way (a family with another renderer overrides ``render``)."""
+        return self.render(camera, mean2d_offset_ndc, params=params, degrees=degrees,
+                           with_stats=with_stats, tile_row_offset=tile_row_offset,
+                           tile_rows=tile_rows)
 
     def mark_visible(self, camera: Camera) -> torch.Tensor:
         """[N] bool: each centre in front of the camera's near plane."""

@@ -31,16 +31,20 @@ _i = ctypes.c_int
 # C signature of each kernel's launcher, by symbol; every launcher returns a
 # cudaError_t. tile_order is int32 [num_tiles] scratch that the launcher
 # fills (the order in which blocks take tiles) before it launches the kernel.
+# tile_row_offset is the image's tile row of the first row of a band of tile
+# rows (0 for the whole image).
 ARGTYPES = {
     # composite_fwd(e, K, range_start, range_end, tile_order, num_tiles,
-    #               tiles_x, color4, final_t, latch, stream)
-    "composite_fwd": (_p, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p),
+    #               tiles_x, tile_row_offset, color4, final_t, latch, stream)
+    "composite_fwd": (_p, _i, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p),
     # composite_fwd_stats(e, K, range_start, range_end, tile_order, num_tiles,
-    #                     tiles_x, color4, final_t, latch, stats, stream)
-    "composite_fwd_stats": (_p, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p),
+    #                     tiles_x, tile_row_offset, color4, final_t, latch, stats,
+    #                     stream)
+    "composite_fwd_stats": (_p, _i, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _p),
     # composite_bwd(e, K, range_start, range_end, tile_order, num_tiles,
-    #               tiles_x, final_t, latch, g_color4, g_t, grads, stream)
-    "composite_bwd": (_p, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p),
+    #               tiles_x, tile_row_offset, final_t, latch, g_color4, g_t, grads,
+    #               stream)
+    "composite_bwd": (_p, _i, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _p, _p),
 }
 # The source (csrc/<name>.cu, and the library built from it) of each symbol.
 SOURCE_OF = {"composite_fwd": "composite_fwd", "composite_fwd_stats": "composite_fwd",

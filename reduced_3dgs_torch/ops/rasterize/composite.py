@@ -18,6 +18,11 @@ Entry fields are packed as rows of a [10, K] float32 matrix, in the JAX
 kernel's order: 0 x, 1 y, 2 conic A, 3 conic B, 4 conic C, 5 opacity,
 6 r, 7 g, 8 b, 9 depth. Tile t owns the sorted entries
 [range_start[t], range_end[t]); the ranges partition [0, K) in tile order.
+Tiles lie row-major, ``tiles_x`` to a row. A render of a band of tile rows
+(the multi-device trainer's viewport) passes ``tile_row_offset``, the
+image's tile row of the band's first row: tile t then covers the pixels of
+image tile row t // tiles_x + tile_row_offset, at the same positions as in
+the full render. It defaults to 0, the whole image.
 
 Per pixel, front to back: power = -0.5 (A dx^2 + C dy^2) - B dx dy,
 alpha = min(0.99, op e^power); an entry is skipped when power > 0 or
@@ -51,7 +56,7 @@ def pack_fields(pre) -> torch.Tensor:
 
 
 def composite_fwd_plain(e: torch.Tensor, range_start: torch.Tensor,
-                        range_end: torch.Tensor, tiles_x: int):
+                        range_end: torch.Tensor, tiles_x: int, tile_row_offset: int = 0):
     """Plain PyTorch version of the forward compositor.
 
     The JAX XLA path's formulation (tiled.py:516-563): per (pixel, entry)
@@ -62,19 +67,21 @@ def composite_fwd_plain(e: torch.Tensor, range_start: torch.Tensor,
     chunks of ``_PIXEL_CHUNK``, with entries on the last axis so that every
     scan runs along contiguous memory.
     """
-    return _composite_plain(e, range_start, range_end, tiles_x, with_stats=False)
+    return _composite_plain(e, range_start, range_end, tiles_x, tile_row_offset,
+                            with_stats=False)
 
 
 def composite_fwd_stats_plain(e: torch.Tensor, range_start: torch.Tensor,
-                              range_end: torch.Tensor, tiles_x: int):
+                              range_end: torch.Tensor, tiles_x: int, tile_row_offset: int = 0):
     """Plain PyTorch version of the statistics compositor: the outputs of
     ``composite_fwd_plain`` and stats [4, K] float32, per sorted entry over
     the pixels it contributes to (the XLA path's tiled.py:552-560): the
     count, count x opacity, the sum of w and the sum of the incoming T."""
-    return _composite_plain(e, range_start, range_end, tiles_x, with_stats=True)
+    return _composite_plain(e, range_start, range_end, tiles_x, tile_row_offset,
+                            with_stats=True)
 
 
-def _composite_plain(e, range_start, range_end, tiles_x, with_stats):
+def _composite_plain(e, range_start, range_end, tiles_x, tile_row_offset, with_stats):
     device = e.device
     K = e.shape[1]
     T = range_start.shape[0]
@@ -86,7 +93,7 @@ def _composite_plain(e, range_start, range_end, tiles_x, with_stats):
     pos = torch.arange(K, device=device)
     x, y, A, B, C, op, r, g, b, depth = e
     tile_x = ((seg % tiles_x) * config.BLOCK_X).to(torch.float32)
-    tile_y = ((seg // tiles_x) * config.BLOCK_Y).to(torch.float32)
+    tile_y = ((seg // tiles_x + tile_row_offset) * config.BLOCK_Y).to(torch.float32)
 
     # Per (pixel, tile): sums of w r, w g, w b, w depth and log T.
     sums = torch.zeros(P, T, 5, dtype=e.dtype, device=device)
@@ -147,24 +154,25 @@ def _check_inputs(e, range_start, range_end):
 
 
 def composite_fwd(e: torch.Tensor, range_start: torch.Tensor,
-                  range_end: torch.Tensor, tiles_x: int):
+                  range_end: torch.Tensor, tiles_x: int, tile_row_offset: int = 0):
     """Forward compositor: (color4 [T,256,4], final_T [T,256,1],
-    latch [T,256,1] int32) for sorted entries ``e`` [10, K].
+    latch [T,256,1] int32) for sorted entries ``e`` [10, K], the band of
+    tile rows from ``tile_row_offset`` (0: the whole image).
 
     CPU tensors go to ``composite_fwd_plain``. CUDA tensors launch the CUDA
     kernel and add one to ``composite_fwd.launches``; any other device
     raises."""
     _check_inputs(e, range_start, range_end)
     if e.device.type == "cpu":
-        return composite_fwd_plain(e, range_start, range_end, tiles_x)
-    return _launch_fwd(composite_fwd, e, range_start, range_end, tiles_x)
+        return composite_fwd_plain(e, range_start, range_end, tiles_x, tile_row_offset)
+    return _launch_fwd(composite_fwd, e, range_start, range_end, tiles_x, tile_row_offset)
 
 
 composite_fwd.launches = 0
 
 
 def composite_fwd_stats(e: torch.Tensor, range_start: torch.Tensor,
-                        range_end: torch.Tensor, tiles_x: int):
+                        range_end: torch.Tensor, tiles_x: int, tile_row_offset: int = 0):
     """Statistics compositor: the outputs of ``composite_fwd`` and stats
     [4, K] float32, per sorted entry over the pixels it contributes to
     (gated and before the pixel's latch; pixels outside the image count,
@@ -177,14 +185,15 @@ def composite_fwd_stats(e: torch.Tensor, range_start: torch.Tensor,
     ``composite_fwd_stats.launches``; any other device raises."""
     _check_inputs(e, range_start, range_end)
     if e.device.type == "cpu":
-        return composite_fwd_stats_plain(e, range_start, range_end, tiles_x)
-    return _launch_fwd(composite_fwd_stats, e, range_start, range_end, tiles_x)
+        return composite_fwd_stats_plain(e, range_start, range_end, tiles_x, tile_row_offset)
+    return _launch_fwd(composite_fwd_stats, e, range_start, range_end, tiles_x,
+                       tile_row_offset)
 
 
 composite_fwd_stats.launches = 0
 
 
-def _launch_fwd(wrapper, e, range_start, range_end, tiles_x):
+def _launch_fwd(wrapper, e, range_start, range_end, tiles_x, tile_row_offset):
     """Launch the kernel of ``csrc/composite_fwd.cu`` that ``wrapper`` (one
     of the two functions above) names, with its stats output for
     ``composite_fwd_stats``, and count the launch on ``wrapper``."""
@@ -210,7 +219,8 @@ def _launch_fwd(wrapper, e, range_start, range_end, tiles_x):
             order = torch.empty(T, dtype=torch.int32, device=e.device)  # filled by the launch
             err = getattr(lib, symbol)(
                 e.data_ptr(), K, range_start.data_ptr(), range_end.data_ptr(),
-                order.data_ptr(), T, tiles_x, *(t.data_ptr() for t in outs), stream)
+                order.data_ptr(), T, tiles_x, tile_row_offset,
+                *(t.data_ptr() for t in outs), stream)
         if err != 0:
             raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
         wrapper.launches += 1
@@ -220,7 +230,7 @@ def _launch_fwd(wrapper, e, range_start, range_end, tiles_x):
 def composite_bwd_plain(e: torch.Tensor, range_start: torch.Tensor,
                         range_end: torch.Tensor, tiles_x: int, final_t: torch.Tensor,
                         latch: torch.Tensor, g_color4: torch.Tensor,
-                        g_t: torch.Tensor) -> torch.Tensor:
+                        g_t: torch.Tensor, tile_row_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the backward compositor: the per-entry
     gradients [10, K] of <g_color4, color4> + <g_t, final_T>.
 
@@ -247,7 +257,7 @@ def composite_bwd_plain(e: torch.Tensor, range_start: torch.Tensor,
     seg_start = rs[seg]
     pos = torch.arange(K, device=device)
     tile_x = ((seg % tiles_x) * config.BLOCK_X).to(torch.float32)
-    tile_y = ((seg // tiles_x) * config.BLOCK_Y).to(torch.float32)
+    tile_y = ((seg // tiles_x + tile_row_offset) * config.BLOCK_Y).to(torch.float32)
     lat = latch[..., 0].to(torch.int64)
     with torch.enable_grad():
         for p0 in range(0, P, _PIXEL_CHUNK):
@@ -277,10 +287,12 @@ def composite_bwd_plain(e: torch.Tensor, range_start: torch.Tensor,
 
 def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.Tensor,
                   tiles_x: int, final_t: torch.Tensor, latch: torch.Tensor,
-                  g_color4: torch.Tensor, g_t: torch.Tensor) -> torch.Tensor:
+                  g_color4: torch.Tensor, g_t: torch.Tensor,
+                  tile_row_offset: int = 0) -> torch.Tensor:
     """Backward compositor: per-entry gradients [10, K], in sorted order, of
     d(x, y, A, B, C, op, r, g, b, depth) for the cotangents g_color4
-    [T,256,4] and g_t [T,256,1], given the forward's final_T and latch.
+    [T,256,4] and g_t [T,256,1], given the forward's final_T and latch, for
+    the band of tile rows from ``tile_row_offset`` (0: the whole image).
 
     CPU tensors go to ``composite_bwd_plain``. CUDA tensors launch the CUDA
     kernel and add one to ``composite_bwd.launches``; any other device
@@ -299,7 +311,7 @@ def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.T
             raise ValueError(f"{nm} is on {t.device}, e on {e.device}")
     if e.device.type == "cpu":
         return composite_bwd_plain(e, range_start, range_end, tiles_x, final_t, latch,
-                                   g_color4, g_t)
+                                   g_color4, g_t, tile_row_offset)
     if e.device.type != "cuda":
         raise ValueError(f"composite_bwd runs on cpu or cuda tensors, not {e.device}")
     args = (("e", e), ("range_start", range_start), ("range_end", range_end),
@@ -317,7 +329,8 @@ def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.T
             order = torch.empty(T, dtype=torch.int32, device=e.device)  # filled by the launch
             err = lib.composite_bwd(
                 e.data_ptr(), K, range_start.data_ptr(), range_end.data_ptr(),
-                order.data_ptr(), T, tiles_x, final_t.data_ptr(), latch.data_ptr(),
+                order.data_ptr(), T, tiles_x, tile_row_offset, final_t.data_ptr(),
+                latch.data_ptr(),
                 g_color4.data_ptr(), g_t.data_ptr(), grads.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
@@ -334,7 +347,8 @@ class CompositeSorted(torch.autograd.Function):
     ``fields10[:, s_gidx]`` and runs ``composite_fwd``.
 
     apply(fields10 [10,N], s_gidx [K], range_start [T], range_end [T],
-    tiles_x) -> (color4 [T,256,4], final_T [T,256,1]). It saves the entry
+    tiles_x[, tile_row_offset]) -> (color4 [T,256,4], final_T [T,256,1]),
+    ``tile_row_offset`` 0 (the whole image) when left out. It saves the entry
     buffer, the entries' Gaussian ids, final_T and the latch. The backward
     runs ``composite_bwd`` into per-entry gradients [10, K] and sums them
     per Gaussian into [10, N] with one ``index_add_``. (The JAX package's
@@ -343,11 +357,13 @@ class CompositeSorted(torch.autograd.Function):
     CUDA the sum uses float atomics, so its last bits vary between runs."""
 
     @staticmethod
-    def forward(ctx, fields10, s_gidx, range_start, range_end, tiles_x):
+    def forward(ctx, fields10, s_gidx, range_start, range_end, tiles_x, tile_row_offset=0):
         e = fields10.index_select(1, s_gidx).contiguous()
-        color4, final_t, latch = composite_fwd(e, range_start, range_end, tiles_x)
+        color4, final_t, latch = composite_fwd(e, range_start, range_end, tiles_x,
+                                               tile_row_offset)
         ctx.save_for_backward(e, s_gidx, range_start, range_end, final_t, latch)
         ctx.tiles_x = tiles_x
+        ctx.tile_row_offset = tile_row_offset
         ctx.num_gaussians = fields10.shape[1]
         return color4, final_t
 
@@ -355,7 +371,9 @@ class CompositeSorted(torch.autograd.Function):
     def backward(ctx, g_color4, g_t):
         e, s_gidx, range_start, range_end, final_t, latch = ctx.saved_tensors
         g_entries = composite_bwd(e, range_start, range_end, ctx.tiles_x, final_t, latch,
-                                  g_color4.contiguous(), g_t.contiguous())
+                                  g_color4.contiguous(), g_t.contiguous(),
+                                  ctx.tile_row_offset)
         dfields = torch.zeros((N_FIELDS, ctx.num_gaussians), dtype=e.dtype, device=e.device)
         dfields.index_add_(1, s_gidx, g_entries)
-        return dfields, None, None, None, None
+        # (autograd drops the trailing None when tile_row_offset was left out)
+        return dfields, None, None, None, None, None

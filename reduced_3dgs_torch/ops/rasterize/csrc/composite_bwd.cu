@@ -154,6 +154,7 @@ composite_bwd_kernel(const float* __restrict__ e, int K,
                      const int* __restrict__ range_start,
                      const int* __restrict__ range_end,
                      const int* __restrict__ tile_order, int tiles_x,
+                     int tile_row_offset,
                      const float* __restrict__ final_t,
                      const int* __restrict__ latch,
                      const float4* __restrict__ g_color4,
@@ -167,7 +168,8 @@ composite_bwd_kernel(const float* __restrict__ e, int K,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const tile_common::WarpBox box = tile_common::warp_box<kWarpWidth>(tile, tiles_x, tid);
+  const tile_common::WarpBox box = tile_common::warp_box<kWarpWidth>(
+      tile, tiles_x, tile_row_offset, tid);
   const float px = box.px;
   const float py = box.py;
   const int start = range_start[tile];
@@ -334,22 +336,24 @@ composite_bwd_kernel(const float* __restrict__ e, int K,
 // returns cudaGetLastError() (0 on success). e: float32 [10, K];
 // range_start, range_end: int32 [num_tiles]; tile_order: int32 [num_tiles],
 // scratch that the launch fills with the tiles, longest first (block i
-// composites tile tile_order[i]); final_t: float32 [num_tiles, 256]; latch:
+// composites tile tile_order[i]); tiles_x and tile_row_offset: as for
+// composite_fwd; final_t: float32 [num_tiles, 256]; latch:
 // int32 [num_tiles, 256] (the forward kernel's); g_color4: float32
 // [num_tiles, 256, 4]; g_t: float32 [num_tiles, 256]; grads: float32
 // [10, K], every entry written.
 extern "C" int composite_bwd(const float* e, int K, const int* range_start,
                              const int* range_end, int* tile_order,
-                             int num_tiles, int tiles_x, const float* final_t,
-                             const int* latch, const float* g_color4,
-                             const float* g_t, float* grads, void* stream) {
+                             int num_tiles, int tiles_x, int tile_row_offset,
+                             const float* final_t, const int* latch,
+                             const float* g_color4, const float* g_t,
+                             float* grads, void* stream) {
   if (num_tiles <= 0) return 0;
   const int err = tile_common::launch_tile_order(
       range_start, range_end, num_tiles, tile_order, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   composite_bwd_kernel<<<num_tiles, kPixels, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      e, K, range_start, range_end, tile_order, tiles_x, final_t, latch,
+      e, K, range_start, range_end, tile_order, tiles_x, tile_row_offset, final_t, latch,
       reinterpret_cast<const float4*>(g_color4), g_t, grads);
   return static_cast<int>(cudaGetLastError());
 }

@@ -237,6 +237,7 @@ composite_fwd_kernel(const float* __restrict__ e, int K,
                      const int* __restrict__ range_start,
                      const int* __restrict__ range_end,
                      const int* __restrict__ tile_order, int tiles_x,
+                     int tile_row_offset,
                      float4* __restrict__ color4, float* __restrict__ final_t,
                      int* __restrict__ latch, float* __restrict__ stats) {
   __shared__ __align__(16) float stage[2][kPixels * kStride];
@@ -245,7 +246,8 @@ composite_fwd_kernel(const float* __restrict__ e, int K,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const tile_common::WarpBox box = tile_common::warp_box<kWarpWidth>(tile, tiles_x, tid);
+  const tile_common::WarpBox box = tile_common::warp_box<kWarpWidth>(
+      tile, tiles_x, tile_row_offset, tid);
   const int start = range_start[tile];
   const int end = range_end[tile];
 
@@ -315,15 +317,15 @@ composite_fwd_kernel(const float* __restrict__ e, int K,
 
 template <bool kWithStats>
 int launch(const float* e, int K, const int* range_start, const int* range_end,
-           int* tile_order, int num_tiles, int tiles_x, float* color4,
-           float* final_t, int* latch, float* stats, void* stream) {
+           int* tile_order, int num_tiles, int tiles_x, int tile_row_offset,
+           float* color4, float* final_t, int* latch, float* stats, void* stream) {
   if (num_tiles <= 0) return 0;
   const int err = tile_common::launch_tile_order(
       range_start, range_end, num_tiles, tile_order, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   composite_fwd_kernel<kWithStats>
       <<<num_tiles, kPixels, 0, static_cast<cudaStream_t>(stream)>>>(
-          e, K, range_start, range_end, tile_order, tiles_x,
+          e, K, range_start, range_end, tile_order, tiles_x, tile_row_offset,
           reinterpret_cast<float4*>(color4), final_t, latch, stats);
   return static_cast<int>(cudaGetLastError());
 }
@@ -334,15 +336,18 @@ int launch(const float* e, int K, const int* range_start, const int* range_end,
 // cudaGetLastError() (0 on success). e: float32 [10, K]; range_start,
 // range_end: int32 [num_tiles]; tile_order: int32 [num_tiles], scratch that
 // the launch fills with the tiles, longest first (block i composites tile
-// tile_order[i]); color4: float32
-// [num_tiles, 256, 4]; final_t: float32 [num_tiles, 256]; latch: int32
-// [num_tiles, 256].
+// tile_order[i]); tiles_x: tiles per row; tile_row_offset: the image's tile
+// row of the band's first row (0 for the whole image; tile t lies at band
+// row t / tiles_x); color4: float32 [num_tiles, 256, 4]; final_t: float32
+// [num_tiles, 256]; latch: int32 [num_tiles, 256].
 extern "C" int composite_fwd(const float* e, int K, const int* range_start,
                              const int* range_end, int* tile_order,
-                             int num_tiles, int tiles_x, float* color4,
-                             float* final_t, int* latch, void* stream) {
+                             int num_tiles, int tiles_x, int tile_row_offset,
+                             float* color4, float* final_t, int* latch,
+                             void* stream) {
   return launch<false>(e, K, range_start, range_end, tile_order, num_tiles,
-                       tiles_x, color4, final_t, latch, nullptr, stream);
+                       tiles_x, tile_row_offset, color4, final_t, latch, nullptr,
+                       stream);
 }
 
 // As composite_fwd, and writes stats: float32 [4, K], per sorted entry the
@@ -352,8 +357,10 @@ extern "C" int composite_fwd_stats(const float* e, int K,
                                    const int* range_start,
                                    const int* range_end,
                                    int* tile_order, int num_tiles,
-                                   int tiles_x, float* color4, float* final_t,
-                                   int* latch, float* stats, void* stream) {
+                                   int tiles_x, int tile_row_offset,
+                                   float* color4, float* final_t, int* latch,
+                                   float* stats, void* stream) {
   return launch<true>(e, K, range_start, range_end, tile_order, num_tiles,
-                      tiles_x, color4, final_t, latch, stats, stream);
+                      tiles_x, tile_row_offset, color4, final_t, latch, stats,
+                      stream);
 }

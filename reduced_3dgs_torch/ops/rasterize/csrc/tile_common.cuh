@@ -81,6 +81,9 @@ inline int launch_tile_order(const int* range_start, const int* range_end,
 // pixels its warp covers: warp w covers a kWarpWidth x (32 / kWarpWidth)
 // box, the boxes in row-major order over the tile and the lanes in
 // row-major order within the box. (kWarpWidth = 16 gives thread t pixel t.)
+// Tile ids are local to a band of tile rows that starts tile_row_offset rows
+// down the image (0 for the whole image), so a pixel has the same position
+// in a band as in the full render.
 struct WarpBox {
   int pixel;       // the thread's pixel, row-major in the tile
   float px, py;    // its position
@@ -89,7 +92,8 @@ struct WarpBox {
 };
 
 template <int kWarpWidth>
-__device__ __forceinline__ WarpBox warp_box(int tile, int tiles_x, int tid) {
+__device__ __forceinline__ WarpBox warp_box(int tile, int tiles_x, int tile_row_offset,
+                                            int tid) {
   constexpr int kTile = 16;
   constexpr int kWarpHeight = 32 / kWarpWidth;
   const int warp = tid >> 5;
@@ -99,7 +103,7 @@ __device__ __forceinline__ WarpBox warp_box(int tile, int tiles_x, int tid) {
   const int lx = bx + lane % kWarpWidth;
   const int ly = by + lane / kWarpWidth;
   const int tx = (tile % tiles_x) * kTile;
-  const int ty = (tile / tiles_x) * kTile;
+  const int ty = (tile / tiles_x + tile_row_offset) * kTile;
   WarpBox box;
   box.pixel = ly * kTile + lx;
   box.px = static_cast<float>(tx + lx);

@@ -263,24 +263,33 @@ def variants(parent_dir):
     return out
 
 
-class _Unordered:
-    """A library built from a source whose launchers take no tile order (the
-    first design's): passes the wrapper's calls on without that argument."""
+# Launcher arguments that earlier designs lack, by position: the tile order
+# (the first design's launchers) and the band's tile row offset (every
+# design before the band viewport).
+_LATER_ARGUMENTS = {"tile_order": 4, "tile_row_offset": 7}
 
-    def __init__(self, lib):
+
+class _Legacy:
+    """A library built from a source whose launchers lack some of the
+    arguments at positions ``drop``: passes the wrapper's calls on without
+    them."""
+
+    def __init__(self, lib, drop):
         self._lib = lib
+        self._drop = drop
 
     def __getattr__(self, symbol):
         fn = getattr(self._lib, symbol)
         if symbol not in _build.ARGTYPES:
             return fn
-        return lambda *args: fn(*args[:4], *args[5:])
+        return lambda *args: fn(*(a for i, a in enumerate(args) if i not in self._drop))
 
 
 def build_all(items, directory):
     """Build every (label, source, text) at once; {label: (CDLL, ptxas usage)}."""
     jobs = {}
-    ordered = {label: "tile_order" in text for label, _, text in items}
+    missing = {label: {pos for arg, pos in _LATER_ARGUMENTS.items() if arg not in text}
+               for label, _, text in items}
     for i, (label, source, text) in enumerate(items):
         src = os.path.join(directory, f"v{i}_{source}.cu")
         lib = os.path.join(directory, f"libv{i}.so")
@@ -299,12 +308,12 @@ def build_all(items, directory):
             if hasattr(cdll, fn):
                 getattr(cdll, fn).argtypes = (ctypes.c_void_p, ctypes.c_int)
                 getattr(cdll, fn).restype = ctypes.c_int
-        if not ordered[label]:
+        if drop := missing[label]:
             for symbol, src in _build.SOURCE_OF.items():
                 if src == source:
-                    getattr(cdll, symbol).argtypes = (_build.ARGTYPES[symbol][:4]
-                                                      + _build.ARGTYPES[symbol][5:])
-            cdll = _Unordered(cdll)
+                    getattr(cdll, symbol).argtypes = tuple(
+                        t for i, t in enumerate(_build.ARGTYPES[symbol]) if i not in drop)
+            cdll = _Legacy(cdll, drop)
         built[label] = (cdll, _build.parse_ptxas(out))
     return built
 

@@ -15,6 +15,16 @@ The pipeline is the CUDA rasterizer's:
      instead, without autograd;
   4. ``_assemble_outputs`` stitches the tiles into the image.
 
+The viewport (the multi-device trainer's pixel band, JAX tiled.py:387-414):
+with ``tile_rows`` given, only the band of ``tile_rows`` tile rows from the
+image's tile row ``tile_row_offset`` is rendered. The projection is the
+full image's; each rect's rows are clipped to the band, and tile ids are
+local to it. A tile's entries, and their order, are the same as in the full
+render, and the compositors place each pixel where the full render does, so
+a band is its crop of the full image. The band's images are its
+``tile_rows * 16`` rows, cropped at the right edge only (the last band may
+reach below the image).
+
 The JAX package instead sizes a static key buffer and regrows it on
 overflow; the port needs neither.
 """
@@ -32,8 +42,11 @@ from .composite import CompositeSorted, composite_fwd_stats, pack_fields
 
 def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
                  tiles_touched: torch.Tensor, depths: torch.Tensor,
-                 tiles_x: int, tiles_y: int) -> dict:
-    """Emit and sort the (tile, Gaussian) entries.
+                 tiles_x: int, tiles_y: int, tile_row_offset: int = 0) -> dict:
+    """Emit and sort the (tile, Gaussian) entries of the ``tiles_y`` tile
+    rows from the image's tile row ``tile_row_offset`` (the whole image by
+    default): each rect's rows are clipped to the band (JAX tiled.py:198-212)
+    and tile ids count from the band's first row.
 
     Returns a dict with ``s_gidx`` [K] int64 Gaussian index and ``s_tile``
     [K] int64 tile id of each sorted entry, ``range_start``/``range_end``
@@ -47,7 +60,9 @@ def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
     device = rect_min.device
     num_tiles = tiles_x * tiles_y
     rect_w = (rect_max[:, 0] - rect_min[:, 0]).to(torch.int64)
-    band_h = torch.clamp(rect_max[:, 1] - rect_min[:, 1], min=0).to(torch.int64)
+    band_min_y = torch.clamp(rect_min[:, 1] - tile_row_offset, 0, tiles_y).to(torch.int64)
+    band_max_y = torch.clamp(rect_max[:, 1] - tile_row_offset, 0, tiles_y).to(torch.int64)
+    band_h = torch.clamp(band_max_y - band_min_y, min=0)
     counts = torch.where(tiles_touched > 0, rect_w * band_h, torch.zeros_like(rect_w))
     total = int(counts.sum())                        # the one host sync
     gidx = torch.repeat_interleave(torch.arange(counts.numel(), device=device),
@@ -56,7 +71,7 @@ def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
     ordinal = torch.arange(total, device=device) - offsets[gidx]
     w_e = rect_w[gidx]
     tx = rect_min[gidx, 0].to(torch.int64) + ordinal % w_e
-    ty = rect_min[gidx, 1].to(torch.int64) + ordinal // w_e
+    ty = band_min_y[gidx] + ordinal // w_e
     tile = ty * tiles_x + tx
     depth_bits = depths.detach().contiguous().view(torch.int32)[gidx].to(torch.int64)
     s_key, perm = torch.sort((tile << 32) | depth_bits, stable=True)
@@ -75,11 +90,15 @@ def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
 
 def render_tiled(means3d, opacities_raw, scales, rotations, shs,
                  settings: RenderSettings, mean2d_offset_ndc=None,
-                 with_stats: bool = False, colors_precomp=None) -> dict:
+                 with_stats: bool = False, colors_precomp=None,
+                 tile_row_offset: int = 0, tile_rows=None) -> dict:
     """Render an image through the tiled pipeline; differentiable in every
     float input unless ``with_stats``. ``mean2d_offset_ndc`` and
     ``colors_precomp`` (the colours to use in place of ``shs``'s, which may
-    then be None) go to ``preprocess``.
+    then be None) go to ``preprocess``. With ``tile_rows``, only that band of
+    tile rows from ``tile_row_offset`` is rendered (the viewport above):
+    the images are then [tile_rows * 16, W], the statistics cover the
+    band's pixels, and "radii" is the full image's.
 
     Returns {"render" [3,H,W], "radii" [N] int32, "final_T" [H,W],
     "depth" [H,W], "num_rendered" int}. With ``with_stats`` the render runs
@@ -90,22 +109,23 @@ def render_tiled(means3d, opacities_raw, scales, rotations, shs,
     to), "opacity_important_score" (count x opacity),
     "T_alpha_important_score" (sum of alpha T) and "transmittance_sum"
     (sum of the incoming T)."""
-    H, W = settings.image_height, settings.image_width
-    tiles_x, tiles_y = common.tile_grid(settings)
+    tiles_x, tiles_y, H, W = viewport(settings, tile_row_offset, tile_rows)
     with torch.no_grad() if with_stats else contextlib.nullcontext():
         pre = common.preprocess(means3d, opacities_raw, scales, rotations, shs, settings,
                                 mean2d_offset_ndc=mean2d_offset_ndc,
                                 colors_precomp=colors_precomp)
         ent = bin_and_sort(pre.rect_min, pre.rect_max, pre.tiles_touched, pre.depths,
-                           tiles_x, tiles_y)
+                           tiles_x, tiles_y, tile_row_offset)
         if not with_stats:
             color4, final_t = CompositeSorted.apply(
-                pack_fields(pre), ent["s_gidx"], ent["range_start"], ent["range_end"], tiles_x)
+                pack_fields(pre), ent["s_gidx"], ent["range_start"], ent["range_end"], tiles_x,
+                tile_row_offset)
             return _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y,
                                      H, W, ent["num_rendered"])
         e = pack_fields(pre).index_select(1, ent["s_gidx"]).contiguous()
         color4, final_t, _, stats = composite_fwd_stats(e, ent["range_start"],
-                                                        ent["range_end"], tiles_x)
+                                                        ent["range_end"], tiles_x,
+                                                        tile_row_offset)
         per_gaussian = torch.zeros((stats.shape[0], means3d.shape[0]), dtype=stats.dtype,
                                    device=stats.device).index_add_(1, ent["s_gidx"], stats)
         out = _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y, H, W,
@@ -118,9 +138,24 @@ def render_tiled(means3d, opacities_raw, scales, rotations, shs,
         return out
 
 
+def viewport(settings: RenderSettings, tile_row_offset: int = 0, tile_rows=None):
+    """(tiles_x, tiles_y, H, W) of the rendered area: the whole image when
+    ``tile_rows`` is None, else the band of ``tile_rows`` tile rows from
+    ``tile_row_offset``, ``tile_rows * 16`` rows high."""
+    tiles_x, full_tiles_y = common.tile_grid(settings)
+    if tile_rows is None:
+        if tile_row_offset != 0:
+            raise ValueError("tile_row_offset needs tile_rows")
+        return tiles_x, full_tiles_y, settings.image_height, settings.image_width
+    if tile_rows < 1 or tile_row_offset < 0:
+        raise ValueError(f"a band of {tile_rows} tile rows from row {tile_row_offset}")
+    return tiles_x, int(tile_rows), int(tile_rows) * config.BLOCK_Y, settings.image_width
+
+
 def _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y, H, W,
                       num_rendered) -> dict:
-    """Stitch [T,256,*] tile outputs into [H,W] images; add the background."""
+    """Stitch [T,256,*] tile outputs into [H,W] images (H may be the
+    padded height of a band); add the background."""
     padded_h = tiles_y * config.BLOCK_Y
     padded_w = tiles_x * config.BLOCK_X
 

@@ -27,9 +27,10 @@ tensors), with each chunk of pixels under
 renderer's ``bin_and_sort``. The running sums over the entry buffer (log
 transmittance, A and D) run in float64 and are rebased at each tile's first
 entry: a float32 sum over the whole buffer would lose the tile-local values
-at full-image entry counts. The JAX function's band viewport
-(``tile_row_offset``, ``tile_rows``) and ``alive`` mask are not ported
-(every row is alive; the band render comes with the multi-device trainer).
+at full-image entry counts. The band viewport (``tile_row_offset``,
+``tile_rows``) is the 3DGS renderer's (``tiled.viewport``): the multi-device
+trainer renders one band of tile rows per rank. The JAX function's ``alive``
+mask is not ported: every row is alive.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ from .. import projection as proj
 from .. import sh as sh_ops
 from . import common
 from .common import RenderSettings
-from .tiled import bin_and_sort
+from .tiled import bin_and_sort, viewport
 
 # Screen-space low-pass variance in px^2 (the 2DGS paper's 0.5-px filter).
 FILTER_VAR_2D = 0.5
@@ -265,7 +266,8 @@ def _pixel_chunk(p0: int, pixel_chunk: int, fields: torch.Tensor, tile_x: torch.
 def render_tiled_2dgs(means3d, opacities_raw, scales, rotations, shs,
                       settings: RenderSettings,
                       mean2d_offset_ndc: Optional[torch.Tensor] = None,
-                      with_stats: bool = False) -> dict:
+                      with_stats: bool = False, tile_row_offset: int = 0,
+                      tile_rows: Optional[int] = None) -> dict:
     """Render N surfels through the tiled pipeline; differentiable in every
     float input unless ``with_stats``.
 
@@ -279,22 +281,23 @@ def render_tiled_2dgs(means3d, opacities_raw, scales, rotations, shs,
     "T_alpha_important_score" (sum of w) and "transmittance_sum". Each
     chunk of PIXEL_CHUNK pixels runs under activation checkpointing when
     autograd records it, so the backward holds one chunk's [PIXEL_CHUNK, K]
-    temporaries at a time."""
-    H, W = settings.image_height, settings.image_width
-    tiles_x, tiles_y = common.tile_grid(settings)
+    temporaries at a time. With ``tile_rows``, only that band of tile rows
+    from ``tile_row_offset`` is rendered, as by ``render_tiled``: the images
+    are the band's ``tile_rows * 16`` rows."""
+    tiles_x, tiles_y, H, W = viewport(settings, tile_row_offset, tile_rows)
     num_tiles = tiles_x * tiles_y
     with torch.no_grad() if with_stats else contextlib.nullcontext():
         pre = preprocess_2dgs(means3d, opacities_raw, scales, rotations, shs, settings,
                               mean2d_offset_ndc=mean2d_offset_ndc)
         ent = bin_and_sort(pre["rect_min"], pre["rect_max"], pre["tiles_touched"],
-                           pre["depths"], tiles_x, tiles_y)
+                           pre["depths"], tiles_x, tiles_y, tile_row_offset)
         s_gidx, s_tile = ent["s_gidx"], ent["s_tile"]
         # One [21, N] -> [21, K] gather of every per-entry field.
         fields = torch.cat([pre["M"].reshape(-1, 9).T, pre["md"].T, pre["center2d"].T,
                             pre["opacity"][None, :], pre["rgb"].T, pre["normal_view"].T],
                            dim=0).index_select(1, s_gidx)
         tile_x = ((s_tile % tiles_x) * config.BLOCK_X).to(fields.dtype)
-        tile_y = ((s_tile // tiles_x) * config.BLOCK_Y).to(fields.dtype)
+        tile_y = ((s_tile // tiles_x + tile_row_offset) * config.BLOCK_Y).to(fields.dtype)
         seg_start = ent["range_start"].to(torch.int64)[s_tile]
 
         chunks, stats = [], None

@@ -6,7 +6,10 @@ PLY. ``QuantizeTrainerWrapper`` makes training codebook-aware: reading its
 ``model`` property quantizes and dequantizes the live parameters in place
 when the step count is a multiple of ``quantize_interval`` inside
 [``quantize_from_iter``, ``quantize_until_iter``], and
-``AbstractTrainer.step`` reads that property before every update.
+``AbstractTrainer.step`` reads that property before every update. Under a
+sharded engine every rank quantizes, and rank 0's dequantized parameters
+then overwrite the others': K-Means' centroid sums are float atomics on the
+card, so the replicas' codebooks may differ in the last bit.
 
 Not ported: ``fires_at``, which sizes the JAX package's fused multi-step
 windows; the port takes one step per call.
@@ -59,5 +62,8 @@ class QuantizeTrainerWrapper(TrainerWrapper):
         model = self.base_trainer.model
         if self.fires(self.curr_step):
             ids_dict, codebook_dict = self.quantizer.quantize(model, update_codebook=True)
-            return self.quantizer.dequantize(model, ids_dict, codebook_dict)
+            model = self.quantizer.dequantize(model, ids_dict, codebook_dict)
+            mesh = getattr(self.engine, "mesh", None)
+            if mesh is not None:
+                mesh.broadcast([p.detach() for p in model.param_dict().values()])
         return model

@@ -14,8 +14,8 @@ modes; the ``*Gsplat*`` names are the JAX registry's aliases of the same
 3DGS classes. ``VariableSHGsplat2DGSGaussianModel`` (and its camera-trainable
 twin) keeps the same parameters and reduction state and renders them as
 surfels (``ops/rasterize/twodgs.py``); every caller renders through
-``render``, so training, importance pruning and SH culling all see the
-surfel renderer.
+``render`` (``render_band`` included), so training, importance pruning, SH
+culling and their sharded forms all see the surfel renderer.
 """
 from __future__ import annotations
 
@@ -94,12 +94,13 @@ class VariableSHGsplat2DGSGaussianModel(VariableSHGaussianModel):
     renderer."""
 
     def render(self, camera, mean2d_offset_ndc=None, *, params=None, degrees=None,
-               with_stats: bool = False) -> dict:
+               with_stats: bool = False, tile_row_offset: int = 0, tile_rows=None) -> dict:
         """As ``GaussianModel.render``, through ``render_tiled_2dgs`` (whose
         dict adds "normal" and "distortion")."""
         return render_tiled_2dgs(*self.render_array_args(params, degrees),
                                  self.render_settings(camera),
-                                 mean2d_offset_ndc=mean2d_offset_ndc, with_stats=with_stats)
+                                 mean2d_offset_ndc=mean2d_offset_ndc, with_stats=with_stats,
+                                 tile_row_offset=tile_row_offset, tile_rows=tile_rows)
 
 
 class CameraTrainableVariableSHGsplat2DGSGaussianModel(VariableSHGsplat2DGSGaussianModel,

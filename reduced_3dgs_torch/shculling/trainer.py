@@ -14,7 +14,9 @@ Gaussian are taken over all cameras, then
 
 The second pass of statistics renders the features and degrees the first
 pass produced, before they are written to the model. The culler writes the
-features in place and leaves Adam's moments as they are.
+features in place and leaves Adam's moments as they are. When the trainer's
+engine has a device mesh (``parallel.ShardedTrainer``), both passes run over
+it (``parallel.stats.sharded_colours_variance``).
 """
 from __future__ import annotations
 
@@ -57,20 +59,27 @@ def _low_distance_colour_culling(degrees, features_rest, threshold, colour_dista
 
 @torch.no_grad()
 def cull_sh_bands(model: VariableSHGaussianModel, cameras, threshold: float = 0,
-                  std_threshold: float = 0.0):
+                  std_threshold: float = 0.0, mesh=None):
     """Cull the SH bands of ``model`` from statistics over ``cameras``: sets
-    its degrees and rewrites its DC and rest features in place."""
+    its degrees and rewrites its DC and rest features in place. With
+    ``mesh`` (a ``parallel.Mesh``), the statistics are swept over it."""
     params = {k: p.detach() for k, p in model.param_dict().items()}
     degrees = model.aux_state()["degrees"]
+    stats_fn = calculate_colours_variance
+    if mesh is not None:
+        from ..parallel.stats import sharded_colours_variance
 
-    _, weighted_variance, weighted_mean = calculate_colours_variance(
+        def stats_fn(*args):
+            return sharded_colours_variance(*args, mesh=mesh)
+
+    _, weighted_variance, weighted_mean = stats_fn(
         cameras, model, params, degrees, model.active_sh_degree)
     degrees, f_dc, f_rest = _low_variance_colour_culling(
         degrees, params["features_dc"], params["features_rest"], std_threshold,
         weighted_variance, weighted_mean)
     params = dict(params, features_dc=f_dc, features_rest=f_rest)
 
-    colour_distances, _, _ = calculate_colours_variance(
+    colour_distances, _, _ = stats_fn(
         cameras, model, params, degrees, model.active_sh_degree)
     degrees, f_rest = _low_distance_colour_culling(
         degrees, params["features_rest"], threshold, colour_distances,
@@ -99,7 +108,8 @@ class SHCuller(TrainerWrapper):
     def optim_step(self):
         ret = super().optim_step()
         if self.curr_step in self.cull_at_steps:
-            cull_sh_bands(self.model, self.dataset, self.cdist_threshold, self.std_threshold)
+            cull_sh_bands(self.model, self.dataset, self.cdist_threshold, self.std_threshold,
+                          mesh=getattr(self.engine, "mesh", None))
         return ret
 
 

@@ -9,7 +9,8 @@ the camera's ``ground_truth_depth`` (cameras without one add nothing), with
 a weight that decays log-linearly over ``depth_l1_weight_max_steps`` steps
 of ``extras["step"]``. ``ScaleRegularizer`` penalises needle Gaussians.
 
-The camera trainer of the JAX module is not ported yet.
+The JAX module's docstring also names the trainable cameras: their port,
+``CameraTrainer`` and ``CameraTrainerWrapper``, is ``trainer/camera_trainer.py``.
 """
 from __future__ import annotations
 

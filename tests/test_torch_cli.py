@@ -3,9 +3,10 @@ train.main, quantize.main, render.main --load_quantized).
 
   * Each of the ten modes, with and without ``quantize`` and
     ``with_scale_reg``, builds the JAX package's onion of wrappers, layer by
-    layer; a camera mode's model class is the camera-trainable one, the
-    gsplat-2dgs backend takes the 2DGS (surfel) classes, and only
-    ``--mesh`` raises.
+    layer; a camera mode's model class is the camera-trainable one and the
+    gsplat-2dgs backend takes the 2DGS (surfel) classes. ``--mesh`` raises
+    where the mesh does not fit the world of processes (a single process
+    here; tests/test_torch_sharded.py runs it over several).
   * ``train.main --device cpu`` on a tiny COLMAP dataset (3 views of 24x32,
     60 sparse points) writes cfg_args, cameras.json and both PLYs, with
     ``-o`` values parsed as literals; ``quantize.main`` and
@@ -274,8 +275,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path, monkeypatch
             main(["-s", str(tmp_path), "-d", str(tmp_path)])
 
 
-def test_train_main_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 22"):
+def test_train_main_mesh_raises(tmp_path, monkeypatch):
+    """A 1x2 mesh needs two processes; without a launcher's WORLD_SIZE the
+    world is this one."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="needs 2 ranks; the world has 1"):
         ttrain.main(["-s", str(tmp_path), "-d", str(tmp_path), "--device", "cpu",
                      "--mesh", "1x2"])
 

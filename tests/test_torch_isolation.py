@@ -60,14 +60,16 @@ def test_port_imports_no_jax():
                      "reduced_3dgs_torch.ops.rasterize.twodgs", "reduced_3dgs_torch.metrics",
                      "reduced_3dgs_torch.metrics.lpips", "reduced_3dgs_torch.viewer",
                      "reduced_3dgs_torch.models.native_io",
-                     "reduced_3dgs_torch.utils.profiling", "reduced_3dgs_torch.utils.cache"):
+                     "reduced_3dgs_torch.utils.profiling", "reduced_3dgs_torch.utils.cache",
+                     "reduced_3dgs_torch.parallel", "reduced_3dgs_torch.parallel.sharding",
+                     "reduced_3dgs_torch.parallel.stats"):
             assert name in names, name
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 66  # every module was imported
+    assert int(out.stdout.strip()) >= 69  # every module was imported
 
 
 def test_render_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
