@@ -112,8 +112,19 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            variables: both ranks' replicas bitwise equal, N moving at the
            events, each rank's launches, the 1x2 run's losses against the
            single process's, and the step times
+  phase 14 the convergence proof: reduced_3dgs_torch.tools.convergence_proof's
+           run() at the full preset (a procedural scene of 120,000 Gaussians
+           rendered from 24 views of 544x976 with sensor noise, 6,000 noisy
+           init points, 2000 steps of the flagship, the raw and quantized
+           PLY, then 2000 steps of the unpruned baseline): the compositors'
+           launches against the schedule's (2 per step, one per ground-truth
+           and evaluation render, one per view per importance sweep and two
+           per view per SH cull), N moving only after the event steps, the
+           cull lowering degrees, the tool's four bars, the median ordinary
+           step of both runs, and the PSNR of the quantized PLY loaded back
 
-Any failed check raises, so the script exits non-zero without its last
+The kernels line's launches are the sums of phases 11 and 14 (each also
+given by phase). Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
 {"ok": true, "device": {...}}. Without CUDA it exits with status 2.
 """
@@ -303,6 +314,10 @@ MESHES = ("1x2", "2x1")
 MESH_TIMEOUT = 240
 TOL_ONE_BY_ONE_REL = 1e-6
 MESH_LOSS_RTOL, MESH_N_REL = 2e-3, 1e-3
+# Phase 14: the convergence proof's preset (24 views of 544x976, 2000 steps
+# of the flagship and of the unpruned baseline), never cut; its bars are the
+# tool's own.
+CONVERGENCE_PRESET = "full"
 
 
 def log(msg):
@@ -2661,10 +2676,141 @@ def mesh_phase(card, params_p, src, wrappers, tmp, dense_config):
         raise AssertionError("phase 13 (b, c): " + "; ".join(failures))
 
 
+def step_times(times, events, rows, iters):
+    """(seconds of steps 2..iters by kind, median ms of the ordinary ones,
+    their count) from the synchronised clock ``times[s]`` read after each
+    step s. A step's time holds its event's work when it is an event step,
+    and the evaluation and checkpoint after the step before it when that
+    one is a history row."""
+    busy = {s for steps in events.values() for s in steps}
+    split = {"after a history row": 0.0, "event steps": 0.0, "ordinary": 0.0}
+    ordinary = []
+    for s in range(2, iters + 1):
+        dt = times[s] - times[s - 1]
+        kind = ("after a history row" if s - 1 in rows
+                else "event steps" if s in busy else "ordinary")
+        split[kind] += dt
+        if kind == "ordinary":
+            ordinary.append(dt * 1e3)
+    return ({k: round(v, 3) for k, v in split.items()},
+            statistics.median(ordinary) if ordinary else float("nan"), len(ordinary))
+
+
+def convergence_phase(card, wrappers, tmp):
+    """Phase 14: the convergence proof's run() at the full preset on the
+    card, with the compositors' launches against the schedule's, N after
+    every step against the event steps, the degrees around the SH cull, the
+    four bars, the median ordinary step of both runs and, as a reading, the
+    PSNR of the quantized PLY loaded back. Returns the launches."""
+    from reduced_3dgs_torch.quantization import ExcludeZeroSHQuantizer
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    from reduced_3dgs_torch.tools import convergence_proof as cp
+    cfg = cp.PRESETS[CONVERGENCE_PRESET]
+    iters, n_cams = cfg["iters"], cfg["cams"]
+    watch = {"times": {"reduced": {}, "baseline": {}}, "events": {}, "n": {0: cfg["n_init"]},
+             "degrees": {}}
+
+    def on_step(tag, step, trainer):
+        torch.cuda.synchronize()
+        watch["times"][tag][step] = time.perf_counter()
+        if tag not in watch["events"]:
+            watch["events"][tag] = cp.event_steps(trainer, iters)
+        if tag != "reduced":
+            return
+        model = trainer.model
+        watch["n"][step] = model.num_points
+        watch["sh_degree"] = model.active_sh_degree
+        cull = watch["events"][tag]["SHCuller"]
+        if step in cull or step + 1 in cull:
+            watch["degrees"][step] = torch.bincount(model._degrees.long(), minlength=4).tolist()
+
+    workdir = os.path.join(tmp, "convergence")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result, launches = counted(wrappers, lambda: cp.run(
+        cfg, device="cuda", workdir=workdir, preset=CONVERGENCE_PRESET, on_step=on_step))
+    t_end = time.perf_counter()
+    wall = t_end - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 14 [{card}]: "
+        + json.dumps({k: v for k, v in result.items() if k != "history"}))
+
+    every = max(1, iters // 20)
+    rows = [s for s in range(1, iters + 1) if s % every == 0 or s == iters]
+    eval_views = len(range(0, n_cams, max(1, n_cams // 6)))
+    events = watch["events"]["reduced"]
+    expected = {"composite_fwd": 2 * iters + n_cams + (1 + len(rows) + 1) * eval_views,
+                "composite_fwd_stats": n_cams * (len(events["ImportancePruner"])
+                                                 + 2 * len(events["SHCuller"])),
+                "composite_bwd": 2 * iters}
+    log(f"phase 14: event steps {json.dumps(events)}; baseline's "
+        f"{json.dumps({k: (v[0], v[-1], len(v)) for k, v in watch['events']['baseline'].items() if v})} "
+        "(first, last, count); launches " f"{launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"phase 14 launched {launches}, expected {expected}")
+
+    n = watch["n"]
+    moved = sorted(s for s in range(1, iters + 1) if n[s] != n[s - 1])
+    movers = set(events["BasePruner"]) | set(events["SplitCloneDensifier"]) | set(
+        events["ImportancePruner"])
+    log(f"phase 14: N moved after {len(moved)} steps, all of them event steps: "
+        f"{set(moved) <= movers}; N after each importance sweep "
+        f"{[(s, n[s - 1], n[s]) for s in events['ImportancePruner']]}")
+    if not moved or not set(moved) <= movers:
+        raise AssertionError(f"N moved after steps {sorted(set(moved) - movers)} outside the "
+                             "scheduled events")
+    if not all(n[s] < n[s - 1] for s in events["ImportancePruner"]):
+        raise AssertionError("an importance sweep did not lower N")
+    for s in events["SHCuller"]:
+        before, after = watch["degrees"][s - 1], watch["degrees"][s]
+        log(f"phase 14: SH cull after step {s}: degrees 0-3 {before} -> {after}")
+        if not sum(after[:3]) > sum(before[:3]):
+            raise AssertionError(f"the SH cull after step {s} lowered no degree")
+
+    bars = result["bars"]
+    checks = {
+        "psnr_final": result["psnr_final"] >= bars["psnr_final_min"],
+        "psnr_gain": result["psnr_final"] - result["psnr_init"] >= bars["psnr_gain_min"],
+        "reduction_vs_unpruned": (result["reduction_vs_unpruned"]
+                                  >= bars["reduction_vs_unpruned_min"]),
+        "size_ratio": result["size_ratio"] <= bars["size_ratio_max"]}
+    log(f"phase 14: bars {checks}, bars_ok {result['bars_ok']}")
+    if not all(checks.values()) or result["bars_ok"] is not True:
+        raise AssertionError(f"phase 14 missed a bar: {checks}")
+
+    medians = {}
+    times = watch["times"]
+    for tag in ("reduced", "baseline"):
+        split, *medians[tag] = step_times(times[tag], watch["events"][tag], rows, iters)
+        log(f"phase 14 [{card}]: {tag} run, seconds of steps 2-{iters} {split}")
+    log(f"phase 14 [{card}]: seconds before the first step (scene, GT renders, init "
+        f"evaluation) {times['reduced'][1] - t0:.3f}, between the runs (last evaluation, "
+        f"checkpoint, PLYs, quantization, the baseline's start) "
+        f"{times['baseline'][1] - times['reduced'][iters]:.3f}, after the last step "
+        f"{t_end - times['baseline'][iters]:.3f}")
+    # The quantized PLY loaded back, at the same evaluation views and SH degree.
+    scene = cp.build_scene(cfg, n_cams, cfg["noise"], "cuda")
+    quantized = VariableSHGaussianModel(3, device="cuda")
+    ExcludeZeroSHQuantizer().load_quantized(quantized, os.path.join(workdir, cp.QUANTIZED_PLY))
+    quantized.active_sh_degree = watch["sh_degree"]
+    psnr_q = cp.eval_psnr(quantized, scene.cameras)
+    log(f"phase 14 [{card}]: {wall:.1f} s for both runs; median ordinary step "
+        f"{medians['reduced'][0]:.3f} ms over {medians['reduced'][1]} steps (flagship), "
+        f"{medians['baseline'][0]:.3f} ms over {medians['baseline'][1]} (baseline); peak "
+        f"memory {peak_gib:.3f} GiB; reading: the quantized PLY loaded back "
+        f"({quantized.num_points} points, SH degree {watch['sh_degree']}) {psnr_q:.4f} dB "
+        f"against {result['history'][-1]['psnr']:.4f} dB of the trained model")
+    if quantized.num_points != result["n_points_final"] or not math.isfinite(psnr_q):
+        raise AssertionError("the quantized PLY does not load back whole")
+    return launches
+
+
 def card_name():
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60, check=True).stdout.strip().splitlines()[0]
+    from reduced_3dgs_torch.tools.convergence_proof import smi_line
+    line = smi_line()
+    if line is None:
+        raise RuntimeError("nvidia-smi gave no name and power limit")
+    return line
 
 
 def main():
@@ -3162,13 +3308,22 @@ def run(tmp):
     torch.cuda.empty_cache()
     log(f"phase 13 [{card}]: {time.perf_counter() - t0:.1f} s")
 
+    # ---------------------------------------------------------------- phase 14
+    t0 = time.perf_counter()
+    convergence_launches = convergence_phase(card, wrappers, tmp)
+    torch.cuda.empty_cache()
+    log(f"phase 14 [{card}]: {time.perf_counter() - t0:.1f} s")
+    launches_by_phase = {name: {"11": camera_launches[name], "14": convergence_launches[name]}
+                         for name in wrappers}
+
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_fwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:300",
-        "launches": camera_launches["composite_fwd"],
+        "launches": sum(launches_by_phase["composite_fwd"].values()),
+        "launches_by_phase": launches_by_phase["composite_fwd"],
         "max_abs_err": bench["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -3180,7 +3335,8 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_fwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:300",
-        "launches": camera_launches["composite_fwd_stats"],
+        "launches": sum(launches_by_phase["composite_fwd_stats"].values()),
+        "launches_by_phase": launches_by_phase["composite_fwd_stats"],
         "max_abs_err": stats_max_abs_err,
         "ms": stats_ms,
         "plain_ms": stats_plain_ms,
@@ -3192,7 +3348,8 @@ def run(tmp):
         "route": "cuda",
         "source": "reduced_3dgs_torch/ops/rasterize/csrc/composite_bwd.cu",
         "replaces": "reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:502",
-        "launches": camera_launches["composite_bwd"],
+        "launches": sum(launches_by_phase["composite_bwd"].values()),
+        "launches_by_phase": launches_by_phase["composite_bwd"],
         "max_abs_err": bwd_max_abs_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

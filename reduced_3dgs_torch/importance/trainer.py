@@ -172,10 +172,13 @@ class ImportancePruner(DensifierWrapper):
         self.prune_thr_T_alpha_avg = importance_prune_thr_T_alpha_avg
         self.v_pow = importance_v_pow
 
+    def fires(self, step: int) -> bool:
+        return (self.importance_prune_from_iter <= step <= self.importance_prune_until_iter
+                and step % self.importance_prune_interval == 0)
+
     def densify_and_prune(self, loss, out, camera, step: int):
         ret = super().densify_and_prune(loss, out, camera, step)
-        if (self.importance_prune_from_iter <= step <= self.importance_prune_until_iter
-                and step % self.importance_prune_interval == 0):
+        if self.fires(step):
             # A sharded engine sweeps over its own mesh.
             remove_mask = prune_gaussians(
                 self.trainer.model, self.dataset, self.resize, self.prune_type,

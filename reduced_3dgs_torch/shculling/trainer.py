@@ -105,9 +105,12 @@ class SHCuller(TrainerWrapper):
         self.std_threshold = std_threshold
         self.cull_at_steps = list(cull_at_steps)
 
+    def fires(self, step: int) -> bool:
+        return step in self.cull_at_steps
+
     def optim_step(self):
         ret = super().optim_step()
-        if self.curr_step in self.cull_at_steps:
+        if self.fires(self.curr_step):
             cull_sh_bands(self.model, self.dataset, self.cdist_threshold, self.std_threshold,
                           mesh=getattr(self.engine, "mesh", None))
         return ret
