@@ -122,9 +122,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            per view per SH cull), N moving only after the event steps, the
            cull lowering degrees, the tool's four bars, the median ordinary
            step of both runs, and the PSNR of the quantized PLY loaded back
+  phase 15 the fused step windows (trainer.step_many, the static key buffer,
+           the step captured as a CUDA graph): (a) one eager fixed-shape
+           step of the 3DGS and of the 2DGS model at the bench scene under
+           torch.cuda.set_sync_debug_mode("error"), and a window of 3 of
+           each against 3 single steps; (b) a
+           window of 16 steps (one capture, 15 replays) against 16 single
+           steps from one state, and the loss gradient with the key buffer
+           at twice its entries
+           against the exact buffer's (the buffer's tail reaches no
+           Gaussian); (c) windows of 16 timed with CUDA events beside
+           Trainer.step, one window's idle share under torch.profiler, each
+           capture's time and pool memory, and the key buffer against the
+           entries after two drains; (d) phase 9's flagship through
+           train.training with R3DGS_WINDOW=16: the windows against the
+           schedule's, N moving only after event steps, the launches
 
-The kernels line's launches are the sums of phases 11 and 14 (each also
-given by phase). Any failed check raises, so the script exits non-zero without its last
+Phases 0-14 run with R3DGS_WINDOW=1 (one step per trainer.step call, which
+their checks wrap); phase 15 sets 16 for its training run. The kernels
+line's launches are the sums of phases 11, 14 and 15 (each also given by
+phase). Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
 {"ok": true, "device": {...}}. Without CUDA it exits with status 2.
 """
@@ -314,6 +331,21 @@ MESHES = ("1x2", "2x1")
 MESH_TIMEOUT = 240
 TOL_ONE_BY_ONE_REL = 1e-6
 MESH_LOSS_RTOL, MESH_N_REL = 2e-3, 1e-3
+# Phase 15: the fused step windows. (b) a window of WINDOW steps against as
+# many single steps from one state, held as phase 10 (e) holds a resumed
+# run: losses within TOL_CKPT_LOSS_REL, and parameters within the JAX
+# package's gradient bars, but for at most WINDOW_OUTSIDE_SHARE of each
+# parameter's entries: B3's and index_add_'s float atomics move a gradient
+# in its last bits from run to run, and where a gradient is as small as that
+# noise, Adam's normalised step flips its sign (a second run of single steps
+# is compared with the first for scale). The gradient of a render with the
+# key buffer at twice its entries against the exact buffer's, per parameter
+# within TOL_BWD_REL of its largest value (the backward compositor's bar).
+# (c) WINDOW_WARMUP windows, then WINDOW_TIMED timed ones, then one under
+# the profiler.
+WINDOW = 16
+WINDOW_OUTSIDE_SHARE = 1e-3
+WINDOW_WARMUP, WINDOW_TIMED = 2, 5
 # Phase 14: the convergence proof's preset (24 views of 544x976, 2000 steps
 # of the flagship and of the unpruned baseline), never cut; its bars are the
 # tool's own.
@@ -2805,6 +2837,321 @@ def convergence_phase(card, wrappers, tmp):
     return launches
 
 
+def sync_error(fn):
+    """Run fn() with torch.cuda.set_sync_debug_mode("error"): None, or the
+    first line of what it raised at a host sync and the port's innermost
+    line that called it."""
+    import traceback
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if "reduced_3dgs_torch" in f.filename]
+        where = (f" at {os.path.relpath(frames[-1].filename)}:{frames[-1].lineno} "
+                 f"({frames[-1].line})" if frames else "")
+        return str(e).strip().splitlines()[0] + where
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return None
+
+
+def predicted_windows(steps, n_views, event_steps, advance_steps, window_max):
+    """The windows train.training takes, from the schedule alone: each
+    grows until a step after which an event fires or a schedule advances,
+    the end of the epoch or the end of training."""
+    windows, step = [], 1
+    while step <= steps:
+        k = 1
+        while (k < window_max and step - 1 + k not in event_steps
+               and step - 1 + k not in advance_steps):
+            k += 1
+        k = min(k, n_views - (step - 1) % n_views, steps - step + 1)
+        windows.append((step, k))
+        step += k
+    return windows
+
+
+def tail_costs(card, model, camera):
+    """Phase 15 (c): at the bench scene with the key buffer at twice its
+    entries, the per-Gaussian sum of the backward's per-entry gradients
+    (index_add_) with the tail's ids spread over composite.TAIL_SCRATCH
+    scratch rows, beside one scratch row for the whole tail and the exact
+    buffer's sum; and the Gaussian-id fill as a running count, beside
+    torch.cummax's running maximum (JAX's form)."""
+    from reduced_3dgs_torch.ops.rasterize import common, tiled
+    from reduced_3dgs_torch.ops.rasterize.composite import sum_per_gaussian
+    n = model.num_points
+    settings = model.render_settings(camera)
+    tx, ty = common.tile_grid(settings)
+    with torch.no_grad():
+        pre = common.preprocess(*model.render_array_args(), settings)
+    args = (pre.rect_min, pre.rect_max, pre.tiles_touched, pre.depths, tx, ty)
+    exact = tiled.bin_and_sort(*args)
+    total = exact["num_rendered"]
+    K = 2 * total
+    ent = tiled.bin_and_sort(*args, key_buffer_size=K)
+    gen = torch.Generator(device=model._xyz.device).manual_seed(5)
+    g = torch.randn((10, K), device=model._xyz.device, generator=gen)
+    one_row = torch.where(ent["valid"], ent["s_gidx"], n)
+    counts = torch.where(pre.tiles_touched > 0,
+                         (pre.rect_max[:, 0] - pre.rect_min[:, 0]).long()
+                         * (pre.rect_max[:, 1] - pre.rect_min[:, 1]).clamp(min=0).long(), 0)
+    offsets = torch.cumsum(counts, 0) - counts
+
+    def running_max():
+        seed = torch.zeros(K + 1, dtype=torch.int64, device=offsets.device)
+        seed.scatter_reduce_(0, torch.where((counts > 0) & (offsets < K), offsets, K),
+                             torch.arange(n, device=offsets.device), reduce="amax")
+        return torch.cummax(seed[:K], 0).values
+
+    if not torch.equal(running_max(), tiled.fill_ids_from_offsets(offsets, counts, K)):
+        raise AssertionError("phase 15 (c): the running count's ids differ from cummax's")
+    times = dict(
+        spread=cuda_ms(lambda: sum_per_gaussian(g, ent["s_gidx"], n)),
+        one_row=cuda_ms(lambda: torch.zeros((10, n + 1), device=g.device).index_add_(
+            1, one_row, g)),
+        exact=cuda_ms(lambda: sum_per_gaussian(g[:, :total].contiguous(), exact["s_gidx"], n)),
+        count_fill=cuda_ms(lambda: tiled.fill_ids_from_offsets(offsets, counts, K)),
+        cummax_fill=cuda_ms(running_max))
+    log(f"phase 15 (c) [{card}]: key buffer {K} for {total} entries: the per-Gaussian sum "
+        f"{times['spread']:.4f} ms with the tail's ids spread over scratch rows "
+        f"(one scratch row {times['one_row']:.4f} ms; the exact buffer {times['exact']:.4f} "
+        f"ms); the id fill by running count {times['count_fill']:.4f} ms (torch.cummax "
+        f"{times['cummax_fill']:.4f} ms)")
+
+
+def window_phase(card, params_p, src, wrappers, tmp, dense_config):
+    """Phase 15: the fused step windows (trainer.step_many, CUDA graphs).
+    (a) one eager fixed-shape step of the 3DGS and of the 2DGS model at the
+    bench scene under the sync debug mode, and a captured window of each;
+    (b) a window of WINDOW steps
+    against WINDOW single steps, and the key buffer's tail; (c) the windowed
+    step's time beside Trainer.step's, one window's idle share, the
+    capture's time and memory, K after two drains; (d) phase 9's flagship
+    through train.training with R3DGS_WINDOW=16. Returns (d)'s launches."""
+    from reduced_3dgs_torch.combinations import (
+        SHCullingOpacityResetFullReducedDensificationTrainer)
+    from reduced_3dgs_torch.dataset.dataset import prepare_dataset
+    from reduced_3dgs_torch.shculling import (VariableSHGaussianModel,
+                                              VariableSHGsplat2DGSGaussianModel)
+    from reduced_3dgs_torch.train import training
+    from reduced_3dgs_torch.trainer import Trainer
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    dataset = prepare_dataset(src)
+    cams = [dataset[i % len(dataset)] for i in range(WINDOW)]
+
+    def trainer_at(cls=VariableSHGaussianModel, source=params_p):
+        model = cls(3, device=dev).load_numpy(source)
+        trainer = Trainer(model, dataset)
+        model.active_sh_degree = 3
+        return trainer
+
+    # (a) The sync check: the step a window captures, eagerly, after one
+    # step that loads the kernels; then a window of 3 (one eager step, the
+    # capture, two replays) against 3 single steps.
+    for cls in (VariableSHGaussianModel, VariableSHGsplat2DGSGaussianModel):
+        trainer = trainer_at(cls)
+        trainer.step(cams[0])
+        err = sync_error(lambda: trainer.window_step(trainer, cams[1]))
+        del trainer
+        log(f"phase 15 (a): {cls.__name__}'s step under the sync debug mode: "
+            f"{'no host sync' if err is None else 'synced: ' + err}")
+        if err is not None:
+            raise AssertionError(f"phase 15 (a): {cls.__name__}'s step syncs; a window "
+                                 "captures it")
+        windowed, single = trainer_at(cls), trainer_at(cls)
+        lw = torch.stack(windowed.step_many(cams[:3])[0]).cpu().double()
+        ls = torch.stack([single.step(c)[0] for c in cams[:3]]).cpu().double()
+        graph = windowed._graph
+        loss_rel = float(((lw - ls).abs() / ls.abs()).max())
+        log(f"phase 15 (a) [{card}]: {cls.__name__}: a window of 3 steps, captured in "
+            f"{graph.capture_s * 1e3:.1f} ms with {graph.pool_bytes / 2**20:.1f} MiB of pool, "
+            f"against 3 single steps: losses max relative difference {loss_rel:.3e}")
+        if not loss_rel <= TOL_CKPT_LOSS_REL:
+            raise AssertionError(f"phase 15 (a): {cls.__name__}'s window's losses differ by "
+                                 f"{loss_rel:.3e}")
+        del windowed, single, graph
+        torch.cuda.empty_cache()
+
+    # (b) A window against single steps, from one state, and single steps
+    # again for the atomics' spread.
+    windowed, single, again = trainer_at(), trainer_at(), trainer_at()
+    losses_w, _ = windowed.step_many(cams)
+    losses_s = [single.step(c)[0] for c in cams]
+    for c in cams:
+        again.step(c)
+    lw, ls = torch.stack(losses_w).cpu().double(), torch.stack(losses_s).cpu().double()
+    loss_rel = float(((lw - ls).abs() / ls.abs()).max())
+
+    def outside(a, b):
+        """(max |a - b|, entries of a outside b's gradient bars)."""
+        a, b = a.detach().double(), b.detach().double()
+        excess = (a - b).abs() - (TOL_CKPT_ATOL + TOL_CKPT_RTOL * b.abs())
+        return float((a - b).abs().max()), int((excess > 0).sum())
+
+    failures, table = [], []
+    states = [(name, p, single.model.param_dict()[name], again.model.param_dict()[name])
+              for name, p in windowed.model.param_dict().items()]
+    states += [(name, getattr(windowed, name), getattr(single, name), getattr(again, name))
+               for name in ("xyz_grad_accum", "max_radii2d")]
+    for name, w, s, a in states:
+        (w_max, w_out), (a_max, a_out) = outside(w, s), outside(a, s)
+        table.append(f"{name} {w_max:.3e} ({w_out} of {s.numel()} outside; single steps "
+                     f"again {a_max:.3e}, {a_out})")
+        if w_out > WINDOW_OUTSIDE_SHARE * s.numel():
+            failures.append(f"{name}: {w_out} of {s.numel()} entries outside the bars")
+    if not torch.equal(windowed.xyz_grad_denom, single.xyz_grad_denom):
+        failures.append("xyz_grad_denom differs")
+    graph = windowed._graph
+    log(f"phase 15 (b) [{card}]: a window of {WINDOW} steps (one captured graph, "
+        f"{graph.tally} launches a replay) against {WINDOW} single steps: losses max relative "
+        f"difference {loss_rel:.3e}; max |difference| " + ", ".join(table))
+    if not loss_rel <= TOL_CKPT_LOSS_REL:
+        failures.append(f"losses differ by {loss_rel:.3e} (relative)")
+    del windowed, single, again, graph
+    torch.cuda.empty_cache()
+
+    # The buffer's tail: one render at the exact entry count and at twice
+    # it, of the bench scene and of the 2DGS model of its MERCY_SUBSET
+    # Gaussians of smallest x.
+    subset = np.argsort(params_p["xyz"][:, 0], kind="stable")[:MERCY_SUBSET]
+    for cls, source in ((VariableSHGaussianModel, params_p),
+                        (VariableSHGsplat2DGSGaussianModel,
+                         {k: v[subset] for k, v in params_p.items()})):
+        grads, total = {}, None
+        for factor in (1, 2):
+            trainer = trainer_at(cls, source)
+            model = trainer.model
+            if total is None:
+                with torch.no_grad():
+                    total = model.render(cams[0])["num_rendered"]
+            out = model.render(cams[0], key_buffer_size=factor * total)
+            loss = trainer.loss_pure()(model.param_dict(), out, cams[0], {})
+            loss.backward()
+            grads[factor] = {k: p.grad.detach().clone() for k, p in model.param_dict().items()}
+            del trainer, model, out, loss
+        tail_rel = {k: float((grads[2][k] - g).abs().max() / g.abs().max())
+                    for k, g in grads[1].items()}
+        log(f"phase 15 (b) [{card}]: {cls.__name__} at N={len(source['xyz'])}: gradient with "
+            f"the key buffer at {2 * total} against {total} (exact): max |difference| / max "
+            f"|gradient| " + ", ".join(f"{k} {v:.3e}" for k, v in tail_rel.items()))
+        if not all(math.isfinite(v) and v <= TOL_BWD_REL for v in tail_rel.values()):
+            failures.append(f"{cls.__name__}: the buffer's tail moves the gradient: {tail_rel}")
+        del grads
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("phase 15 (b): " + "; ".join(failures))
+
+    # (c) Times: windows, then a window under the profiler; Trainer.step.
+    trainer = trainer_at()
+    window_ms, graphs = [], []
+    for it in range(WINDOW_WARMUP + WINDOW_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.step_many(cams)
+        end.record()
+        end.synchronize()
+        window_ms.append(start.elapsed_time(end))
+        graphs.append(trainer._graph)
+    busy = device_busy(lambda: trainer.step_many(cams), calls=1)
+    fresh = [i for i, g in enumerate(graphs) if i == 0 or g is not graphs[i - 1]]
+    captures = [graphs[i] for i in fresh]
+    key_buffer = trainer.key_buffer_for(cams[0])
+    with torch.no_grad():
+        rendered = trainer.model.render(cams[0])["num_rendered"]
+    single = trainer_at()
+    step_ms = cuda_ms(lambda: single.step(cams[0]))
+    del single
+    timed = window_ms[WINDOW_WARMUP:]
+    n_launch, busy_ms, wall_ms, top, _ = busy
+    log(f"phase 15 (c) [{card}]: windows of {WINDOW} steps at N={N_GAUSSIANS}, {HEIGHT}x{WIDTH}, "
+        f"SH degree 3: {[round(t, 4) for t in window_ms]} ms (the first {WINDOW_WARMUP} warm-up); "
+        f"timed median {statistics.median(timed):.4f} ms, "
+        f"{statistics.median(timed) / WINDOW:.4f} ms a step; Trainer.step {step_ms:.4f} ms")
+    log(f"phase 15 (c) [{card}]: {len(captures)} captures in {trainer.curr_step} steps, in "
+        f"windows {[i + 1 for i in fresh]}: capture "
+        + ", ".join(f"{g.capture_s * 1e3:.1f} ms and {g.pool_bytes / 2**20:.1f} MiB of pool"
+                    for g in captures)
+        + f"; after two drains K {key_buffer} for {rendered} entries "
+        f"({key_buffer / rendered:.3f}x)")
+    if busy_ms > 0:
+        log(f"phase 15 (c) [{card}]: under torch.profiler, one window of {WINDOW} steps: "
+            f"{n_launch:.0f} device kernels and copies, device busy {busy_ms:.4f} ms of "
+            f"{wall_ms:.4f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}); top: "
+            + "; ".join(f"{k} x{c} {ms:.4f} ms" for k, c, ms in top))
+    else:
+        log("phase 15 (c): the window's device busy share not measured (the profiler saw "
+            "no device time)")
+    tail_costs(card, trainer.model, cams[0])
+    del trainer, graphs, captures
+    torch.cuda.empty_cache()
+
+    # (d) Phase 9's flagship through train.training, in windows.
+    config = dict(FLAGSHIP_CONFIG, **{k: dense_config[k] for k in (
+        "densify_grad_threshold", "densify_percent_dense", "prune_percent_too_big")})
+    model = VariableSHGaussianModel(3, device=dev).load_numpy(params_p)
+    trainer = SHCullingOpacityResetFullReducedDensificationTrainer(model, dataset, **config)
+    windows = []
+    take_step, take_many = trainer.step, trainer.step_many
+
+    def record(fn, k):
+        def run(cameras):
+            first, n0 = trainer.curr_step + 1, model.num_points
+            out = fn(cameras)
+            windows.append((first, k(cameras), n0, model.num_points))
+            return out
+        return run
+
+    trainer.step = record(take_step, lambda c: 1)
+    trainer.step_many = record(take_many, len)
+    for fn in wrappers.values():
+        fn.launches = 0
+    os.environ["R3DGS_WINDOW"] = str(WINDOW)
+    t0 = time.perf_counter()
+    try:
+        losses = training(dataset, model, trainer, None, os.path.join(tmp, "windows"),
+                          iteration=FLAGSHIP_STEPS, save_iterations=[])
+        torch.cuda.synchronize()
+    finally:
+        os.environ["R3DGS_WINDOW"] = "1"
+        trainer.step, trainer.step_many = take_step, take_many
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    values = torch.stack(losses).cpu().tolist()
+    instruction_steps = set(F_SPLIT + F_PRUNE + F_IMPORTANCE)
+    advance_steps = {s for s in range(FLAGSHIP_STEPS)
+                     if s > 0 and s % FLAGSHIP_CONFIG["sh_degree_up_interval"] == 0
+                     and s // FLAGSHIP_CONFIG["sh_degree_up_interval"] <= 3}
+    expected_windows = predicted_windows(
+        FLAGSHIP_STEPS, len(dataset), set(F_SPLIT + F_PRUNE + F_IMPORTANCE + F_CULL + F_RESET),
+        advance_steps, WINDOW)
+    log(f"phase 15 (d) [{card}]: training() {FLAGSHIP_STEPS} steps of the flagship with "
+        f"R3DGS_WINDOW={WINDOW} in {wall:.2f} s: windows (first step, steps, N before, N "
+        f"after) {windows}; losses {values}; launches {launches}")
+    failures = []
+    if [(w[0], w[1]) for w in windows] != expected_windows:
+        failures.append(f"windows {[(w[0], w[1]) for w in windows]}, the schedule's "
+                        f"{expected_windows}")
+    for first, k, n0, n1 in windows:
+        if n1 != n0 and first + k - 1 not in instruction_steps:
+            failures.append(f"N moved in the window ending after step {first + k - 1}")
+    expected = {"composite_fwd": FLAGSHIP_STEPS, "composite_bwd": FLAGSHIP_STEPS,
+                "composite_fwd_stats": len(dataset) * (len(F_IMPORTANCE) + 2 * len(F_CULL))}
+    if launches != expected:
+        failures.append(f"launched {launches}, expected {expected}")
+    if len(values) != FLAGSHIP_STEPS or not all(map(math.isfinite, values)):
+        failures.append(f"losses are not all finite: {values}")
+    if failures:
+        raise AssertionError("phase 15 (d): " + "; ".join(failures))
+    log(f"phase 15 [{card}]: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def card_name():
     from reduced_3dgs_torch.tools.convergence_proof import smi_line
     line = smi_line()
@@ -2844,6 +3191,9 @@ def run(tmp):
     dev = torch.device("cuda")
     wrappers = {"composite_fwd": composite_fwd, "composite_fwd_stats": composite_fwd_stats,
                 "composite_bwd": composite_bwd}
+    # Phases 0-14 step one camera a call (their checks wrap trainer.step);
+    # the subprocesses of phases 10-13 inherit it.
+    os.environ["R3DGS_WINDOW"] = "1"
     t_start = time.perf_counter()
     # ---------------------------------------------------------------- phase 0
     card = card_name()
@@ -3313,7 +3663,12 @@ def run(tmp):
     convergence_launches = convergence_phase(card, wrappers, tmp)
     torch.cuda.empty_cache()
     log(f"phase 14 [{card}]: {time.perf_counter() - t0:.1f} s")
-    launches_by_phase = {name: {"11": camera_launches[name], "14": convergence_launches[name]}
+
+    # ---------------------------------------------------------------- phase 15
+    window_launches = window_phase(card, params_p, src, wrappers, tmp, dense_config)
+    torch.cuda.empty_cache()
+    launches_by_phase = {name: {"11": camera_launches[name], "14": convergence_launches[name],
+                                "15": window_launches[name]}
                          for name in wrappers}
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -176,6 +176,10 @@ class ImportancePruner(DensifierWrapper):
         return (self.importance_prune_from_iter <= step <= self.importance_prune_until_iter
                 and step % self.importance_prune_interval == 0)
 
+
+    def fires_at(self, step: int) -> bool:
+        return self.fires(step) or super().fires_at(step)
+
     def densify_and_prune(self, loss, out, camera, step: int):
         ret = super().densify_and_prune(loss, out, camera, step)
         if self.fires(step):

@@ -184,18 +184,23 @@ class GaussianModel(nn.Module):
                params: Optional[Dict[str, torch.Tensor]] = None,
                degrees: Optional[torch.Tensor] = None,
                with_stats: bool = False, tile_row_offset: int = 0,
-               tile_rows: Optional[int] = None) -> dict:
+               tile_rows: Optional[int] = None,
+               key_buffer_size: Optional[int] = None) -> dict:
         """Render from ``params`` and ``degrees`` (the model's own when
         None), differentiably unless ``with_stats`` (the counterpart of the
         JAX model's functional ``render``; every row is alive, as the port
         keeps no capacity padding). ``mean2d_offset_ndc`` [N,2] is the zero
         offset whose gradient is the screen-space gradient the trainer
         accumulates. ``tile_rows`` renders the band of that many tile rows
-        from ``tile_row_offset`` (see ``render_tiled``)."""
+        from ``tile_row_offset`` (see ``render_tiled``). ``key_buffer_size``
+        bins into a static buffer of that many entries, with no host sync;
+        the output then holds "overflow" and "num_rendered" as tensors, as
+        the JAX model's does."""
         return render_tiled(*self.render_array_args(params, degrees),
                             self.render_settings(camera),
                             mean2d_offset_ndc=mean2d_offset_ndc, with_stats=with_stats,
-                            tile_row_offset=tile_row_offset, tile_rows=tile_rows)
+                            tile_row_offset=tile_row_offset, tile_rows=tile_rows,
+                            key_buffer_size=key_buffer_size)
 
     def render_band(self, camera: Camera, tile_row_offset: int, tile_rows: int,
                     mean2d_offset_ndc: Optional[torch.Tensor] = None, *,

@@ -32,6 +32,22 @@ color4 [T,256,4] (sum of w (r, g, b, depth), w = alpha T), final_T
 [T,256,1] and latch [T,256,1] int32, the sorted position of the latching
 entry or range_end[t] when the pixel never latches. An empty tile gives
 colour 0, T 1 and latch range_end[t].
+
+A static key buffer (``tiled.bin_and_sort`` with ``key_buffer_size``) may
+end in a tail of entries that lie in no tile's range: the kernels never
+read them, B2 and B3 leave their per-entry outputs unwritten there, and the
+plain versions give them zeros. Their Gaussian ids are scratch ids at and
+past N, N + (position mod ``TAIL_SCRATCH``): ``gather_entries`` gathers
+them from zero columns and ``sum_per_gaussian`` sums them into scratch rows
+that it drops, so that whatever the buffer holds there reaches no Gaussian.
+(Spread over that many rows, the tail's float atomics do not contend on
+one address, which made the per-Gaussian sum tens of times slower on the
+card; PERF.md §6.)
+
+Each wrapper counts its launches in ``.launches``. A launch made while the
+current stream captures a CUDA graph runs only when the graph is replayed:
+it goes to ``captured_launches`` instead, and whoever replays the graph adds
+what its capture recorded with ``add_replayed_launches``.
 """
 from __future__ import annotations
 
@@ -45,6 +61,49 @@ N_STATS = 4
 # Pixels per step of the plain version: its [pixels, K] temporaries at the
 # bench scene (K ~ 0.6M entries) must fit on the card.
 _PIXEL_CHUNK = 32
+
+
+# Scratch ids of a static key buffer's tail (see the module docstring).
+TAIL_SCRATCH = 4096
+# Launches recorded while a CUDA graph was being captured, by wrapper name.
+captured_launches = {"composite_fwd": 0, "composite_fwd_stats": 0, "composite_bwd": 0}
+
+
+def _count_launch(wrapper):
+    if torch.cuda.is_current_stream_capturing():
+        captured_launches[wrapper.__name__] += 1
+    else:
+        wrapper.launches += 1
+
+
+def add_replayed_launches(tally: dict):
+    """Count one replay of a graph whose capture recorded ``tally``
+    (wrapper name -> launches) on each wrapper."""
+    wrappers = {"composite_fwd": composite_fwd, "composite_fwd_stats": composite_fwd_stats,
+                "composite_bwd": composite_bwd}
+    for name, n in tally.items():
+        wrappers[name].launches += n
+
+
+def gather_entries(fields: torch.Tensor, s_gidx: torch.Tensor) -> torch.Tensor:
+    """fields [R, N] gathered at the sorted entries' Gaussian ids [K], where
+    the scratch ids at and past N (a static buffer's tail) read zeros:
+    [R, K], contiguous."""
+    return torch.nn.functional.pad(fields, (0, TAIL_SCRATCH)).index_select(1, s_gidx)
+
+
+def sum_per_gaussian(per_entry: torch.Tensor, s_gidx: torch.Tensor, n: int) -> torch.Tensor:
+    """per_entry [R, K] summed per Gaussian id into [R, n] with one
+    ``index_add_``; entries with scratch ids (a static buffer's tail) go to
+    scratch rows that are dropped."""
+    out = torch.zeros((per_entry.shape[0], n + TAIL_SCRATCH), dtype=per_entry.dtype,
+                      device=per_entry.device)
+    return out.index_add_(1, s_gidx, per_entry)[:, :n]
+
+
+def _valid_count(range_end: torch.Tensor) -> int:
+    """The entries that lie in a tile's range: a prefix of the buffer."""
+    return int(range_end[-1]) if range_end.numel() else 0
 
 
 def pack_fields(pre) -> torch.Tensor:
@@ -82,6 +141,8 @@ def composite_fwd_stats_plain(e: torch.Tensor, range_start: torch.Tensor,
 
 
 def _composite_plain(e, range_start, range_end, tiles_x, tile_row_offset, with_stats):
+    K_buffer = e.shape[1]
+    e = e[:, :_valid_count(range_end)]
     device = e.device
     K = e.shape[1]
     T = range_start.shape[0]
@@ -138,7 +199,8 @@ def _composite_plain(e, range_start, range_end, tiles_x, tile_row_offset, with_s
     if not with_stats:
         return color4, final_t, latch
     cnt = counts.to(e.dtype)
-    return color4, final_t, latch, torch.stack([cnt, cnt * op, w_sum, t_sum])
+    stats = torch.stack([cnt, cnt * op, w_sum, t_sum])
+    return color4, final_t, latch, torch.nn.functional.pad(stats, (0, K_buffer - K))
 
 
 def _check_inputs(e, range_start, range_end):
@@ -223,7 +285,7 @@ def _launch_fwd(wrapper, e, range_start, range_end, tiles_x, tile_row_offset):
                 *(t.data_ptr() for t in outs), stream)
         if err != 0:
             raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
-        wrapper.launches += 1
+        _count_launch(wrapper)
     return tuple(outs)
 
 
@@ -244,13 +306,15 @@ def composite_bwd_plain(e: torch.Tensor, range_start: torch.Tensor,
     arguments. The alpha clamp is ``where(raw < 0.99, raw, 0.99)``, whose
     subgradient is the JAX package's strict ``<``."""
     del final_t
+    all_grads = torch.zeros_like(e)
+    grads = all_grads[:, :_valid_count(range_end)]
+    e = e[:, :grads.shape[1]]
     device = e.device
     K = e.shape[1]
     T = range_start.shape[0]
     P = config.BLOCK_SIZE
-    grads = torch.zeros_like(e)
     if K == 0:
-        return grads
+        return all_grads
     rs = range_start.to(torch.int64)
     re = range_end.to(torch.int64)
     seg = torch.repeat_interleave(torch.arange(T, device=device), re - rs, output_size=K)
@@ -282,7 +346,7 @@ def composite_bwd_plain(e: torch.Tensor, range_start: torch.Tensor,
                               .index_add(1, seg, log1ma))
             objective = (abar * T_in * cdotg).sum() + (g_t[:, p0:p1, 0].T * final).sum()
             grads += torch.autograd.grad(objective, ev)[0]
-    return grads
+    return all_grads
 
 
 def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.Tensor,
@@ -334,7 +398,7 @@ def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.T
                 g_color4.data_ptr(), g_t.data_ptr(), grads.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
-        composite_bwd.launches += 1
+        _count_launch(composite_bwd)
     return grads
 
 
@@ -351,14 +415,15 @@ class CompositeSorted(torch.autograd.Function):
     ``tile_row_offset`` 0 (the whole image) when left out. It saves the entry
     buffer, the entries' Gaussian ids, final_T and the latch. The backward
     runs ``composite_bwd`` into per-entry gradients [10, K] and sums them
-    per Gaussian into [10, N] with one ``index_add_``. (The JAX package's
+    per Gaussian into [10, N] with one ``index_add_`` (``sum_per_gaussian``:
+    a static buffer's tail, whose ids are N, lands in a dropped row). (The JAX package's
     scatter-free prefix difference, ``segment_reduce_emission``, exists
     because XLA's scatter-add is serial on a TPU; it is not ported.) On
     CUDA the sum uses float atomics, so its last bits vary between runs."""
 
     @staticmethod
     def forward(ctx, fields10, s_gidx, range_start, range_end, tiles_x, tile_row_offset=0):
-        e = fields10.index_select(1, s_gidx).contiguous()
+        e = gather_entries(fields10, s_gidx)
         color4, final_t, latch = composite_fwd(e, range_start, range_end, tiles_x,
                                                tile_row_offset)
         ctx.save_for_backward(e, s_gidx, range_start, range_end, final_t, latch)
@@ -373,7 +438,6 @@ class CompositeSorted(torch.autograd.Function):
         g_entries = composite_bwd(e, range_start, range_end, ctx.tiles_x, final_t, latch,
                                   g_color4.contiguous(), g_t.contiguous(),
                                   ctx.tile_row_offset)
-        dfields = torch.zeros((N_FIELDS, ctx.num_gaussians), dtype=e.dtype, device=e.device)
-        dfields.index_add_(1, s_gidx, g_entries)
+        dfields = sum_per_gaussian(g_entries, s_gidx, ctx.num_gaussians)
         # (autograd drops the trailing None when tile_row_offset was left out)
         return dfields, None, None, None, None, None

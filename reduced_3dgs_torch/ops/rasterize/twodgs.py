@@ -23,7 +23,10 @@ There is no Pallas kernel behind the JAX function: it is a pixel-chunked
 segmented scan in plain XLA under ``jax.checkpoint``. Its counterpart here
 is plain PyTorch, run on the device of its inputs (the card for CUDA
 tensors), with each chunk of pixels under
-``torch.utils.checkpoint.checkpoint``. Entries come from the 3DGS
+``torch.utils.checkpoint.checkpoint`` (which keeps no random state: the
+chunk draws none, and a CUDA graph cannot read the generator's). The step
+makes no copy from the host, so the trainer captures it as it captures the
+3DGS step. Entries come from the 3DGS
 renderer's ``bin_and_sort``. The running sums over the entry buffer (log
 transmittance, A and D) run in float64 and are rebased at each tile's first
 entry: a float32 sum over the whole buffer would lose the tile-local values
@@ -45,6 +48,7 @@ from .. import projection as proj
 from .. import sh as sh_ops
 from . import common
 from .common import RenderSettings
+from .composite import TAIL_SCRATCH, gather_entries, sum_per_gaussian
 from .tiled import bin_and_sort, viewport
 
 # Screen-space low-pass variance in px^2 (the 2DGS paper's 0.5-px filter).
@@ -62,14 +66,16 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
 
 
-def _tile_bounds(lo: torch.Tensor, hi: torch.Tensor, grid: torch.Tensor):
+def _tile_bounds(lo: torch.Tensor, hi: torch.Tensor, tiles_x: int, tiles_y: int):
     """[lo / 16] truncated and floor(hi / 16) + 1, clipped to the grid in
     float before the integer conversion (the JAX function converts, then
     clips; the two agree for every finite input)."""
-    rmin = torch.trunc(lo / config.BLOCK_X)
-    rmax = torch.floor(hi / config.BLOCK_X) + 1
-    return (torch.minimum(torch.clamp(rmin, min=0), grid).to(torch.int32),
-            torch.minimum(torch.clamp(rmax, min=0), grid).to(torch.int32))
+    def clip(r):
+        return torch.stack([torch.clamp(r[..., 0], 0, tiles_x),
+                            torch.clamp(r[..., 1], 0, tiles_y)], dim=-1).to(torch.int32)
+
+    return (clip(torch.trunc(lo / config.BLOCK_X)),
+            clip(torch.floor(hi / config.BLOCK_X) + 1))
 
 
 def preprocess_2dgs(means3d, opacities_raw, scales, rotations, shs,
@@ -97,9 +103,8 @@ def preprocess_2dgs(means3d, opacities_raw, scales, rotations, shs,
 
     # B [N,4,3]: the world homogeneous point of s = (u, v, 1) is B @ s;
     # columns (t_u, t_v, p), and the last row (0, 0, 1) gives the 1.
-    B = torch.cat([torch.stack([tu, tv, means3d], dim=-1),
-                   torch.tensor([[0.0, 0.0, 1.0]], dtype=means3d.dtype,
-                                device=means3d.device).expand(n, 1, 3)], dim=-2)
+    last_row = torch.cat([means3d.new_zeros((1, 1, 2)), means3d.new_ones((1, 1, 1))], dim=-1)
+    B = torch.cat([torch.stack([tu, tv, means3d], dim=-1), last_row.expand(n, 1, 3)], dim=-2)
     P = settings.projmatrix                                  # [4,4] row-vector
     M4 = 0
     for r in range(4):
@@ -143,7 +148,6 @@ def preprocess_2dgs(means3d, opacities_raw, scales, rotations, shs,
         hi_y = torch.maximum(torch.amax(cy, 1), center2d[:, 1] + lp_rad)
         return lo_x, hi_x, lo_y, hi_y
 
-    grid = torch.tensor([tiles_x, tiles_y], dtype=means3d.dtype, device=means3d.device)
     # Radii and visibility keep the fixed 3-unit cutoff (the densifier and
     # the screen-size prune read them); binning uses the alpha-cutoff extent
     # sqrt(2 ln(255 op)), outside which the compositor's gate drops every
@@ -152,14 +156,15 @@ def preprocess_2dgs(means3d, opacities_raw, scales, rotations, shs,
     lo_x, hi_x, lo_y, hi_y = corner_aabb(full)
     radius = torch.ceil(0.5 * torch.maximum(hi_x - lo_x, hi_y - lo_y))
     rmin3, rmax3 = _tile_bounds(torch.stack([lo_x, lo_y], -1), torch.stack([hi_x, hi_y], -1),
-                                grid)
+                                tiles_x, tiles_y)
     rect3_wh = torch.clamp(rmax3 - rmin3, min=0)
     visible = visible & ((rect3_wh[..., 0] * rect3_wh[..., 1]) > 0)
 
     t2 = 2.0 * torch.log(255.0 * torch.clamp(opacity, min=1e-6))
     cut_a = torch.minimum(full, torch.sqrt(torch.clamp(t2, min=0.0)))
     lo_x, hi_x, lo_y, hi_y = corner_aabb(cut_a)
-    rmin, rmax = _tile_bounds(torch.stack([lo_x, lo_y], -1), torch.stack([hi_x, hi_y], -1), grid)
+    rmin, rmax = _tile_bounds(torch.stack([lo_x, lo_y], -1), torch.stack([hi_x, hi_y], -1),
+                              tiles_x, tiles_y)
     rect_wh = torch.clamp(rmax - rmin, min=0)
     tiles = (rect_wh[..., 0] * rect_wh[..., 1]).to(torch.int32)
 
@@ -225,8 +230,7 @@ def _pixel_chunk(p0: int, pixel_chunk: int, fields: torch.Tensor, tile_x: torch.
     zhit = md0 * u + md1 * v + md2
     depth_px = torch.where(use3d, zhit, md2.expand_as(zhit))
 
-    alpha = torch.minimum(torch.tensor(config.ALPHA_MAX, dtype=fields.dtype, device=device),
-                          op * G)
+    alpha = torch.minimum(fields.new_full((), config.ALPHA_MAX), op * G)
     gate = (alpha >= config.ALPHA_EPS) & (depth_px > config.NEAR_CULL_Z)
     abar = torch.where(gate, alpha, torch.zeros_like(alpha))
 
@@ -267,7 +271,8 @@ def render_tiled_2dgs(means3d, opacities_raw, scales, rotations, shs,
                       settings: RenderSettings,
                       mean2d_offset_ndc: Optional[torch.Tensor] = None,
                       with_stats: bool = False, tile_row_offset: int = 0,
-                      tile_rows: Optional[int] = None) -> dict:
+                      tile_rows: Optional[int] = None,
+                      key_buffer_size: Optional[int] = None) -> dict:
     """Render N surfels through the tiled pipeline; differentiable in every
     float input unless ``with_stats``.
 
@@ -283,35 +288,57 @@ def render_tiled_2dgs(means3d, opacities_raw, scales, rotations, shs,
     autograd records it, so the backward holds one chunk's [PIXEL_CHUNK, K]
     temporaries at a time. With ``tile_rows``, only that band of tile rows
     from ``tile_row_offset`` is rendered, as by ``render_tiled``: the images
-    are the band's ``tile_rows * 16`` rows."""
+    are the band's ``tile_rows * 16`` rows. ``key_buffer_size`` bins into
+    the static buffer of ``bin_and_sort`` (then "num_rendered" is a 0-d
+    tensor and "overflow" is added); the buffer's tail reads the zero
+    columns of ``gather_entries``, so it blends nothing, and it sums into
+    ``TAIL_SCRATCH`` scratch tiles past the last, which are dropped. This
+    compositor is plain PyTorch, so on the card its work grows with the
+    whole buffer, tail included; on the CPU it composites only the entries
+    in a tile."""
     tiles_x, tiles_y, H, W = viewport(settings, tile_row_offset, tile_rows)
     num_tiles = tiles_x * tiles_y
     with torch.no_grad() if with_stats else contextlib.nullcontext():
         pre = preprocess_2dgs(means3d, opacities_raw, scales, rotations, shs, settings,
                               mean2d_offset_ndc=mean2d_offset_ndc)
         ent = bin_and_sort(pre["rect_min"], pre["rect_max"], pre["tiles_touched"],
-                           pre["depths"], tiles_x, tiles_y, tile_row_offset)
+                           pre["depths"], tiles_x, tiles_y, tile_row_offset, key_buffer_size)
         s_gidx, s_tile = ent["s_gidx"], ent["s_tile"]
+        n_scratch = TAIL_SCRATCH if "valid" in ent else 0
+        if n_scratch and s_gidx.device.type == "cpu":
+            # The count costs no sync on the CPU: composite only the entries
+            # in a tile, the same sums as over the whole static buffer.
+            n_valid = int(ent["range_end"][-1])
+            s_gidx, s_tile, n_scratch = s_gidx[:n_valid], s_tile[:n_valid], 0
         # One [21, N] -> [21, K] gather of every per-entry field.
-        fields = torch.cat([pre["M"].reshape(-1, 9).T, pre["md"].T, pre["center2d"].T,
-                            pre["opacity"][None, :], pre["rgb"].T, pre["normal_view"].T],
-                           dim=0).index_select(1, s_gidx)
+        fields = gather_entries(torch.cat([pre["M"].reshape(-1, 9).T, pre["md"].T,
+                                           pre["center2d"].T, pre["opacity"][None, :],
+                                           pre["rgb"].T, pre["normal_view"].T], dim=0), s_gidx)
         tile_x = ((s_tile % tiles_x) * config.BLOCK_X).to(fields.dtype)
         tile_y = ((s_tile // tiles_x + tile_row_offset) * config.BLOCK_Y).to(fields.dtype)
-        seg_start = ent["range_start"].to(torch.int64)[s_tile]
+        seg_start = ent["range_start"].to(torch.int64)[torch.clamp(s_tile, max=num_tiles - 1)]
+        seg = s_tile
+        if n_scratch:
+            # A static buffer's tail: each entry starts its own segment and
+            # sums into scratch tiles, spread so that neither the sums nor
+            # the rebase's backward contend on one address.
+            pos = torch.arange(s_tile.shape[0], device=s_tile.device)
+            seg_start = torch.where(s_tile < num_tiles, seg_start, pos)
+            seg = torch.where(s_tile < num_tiles, s_tile, num_tiles + pos % n_scratch)
 
         chunks, stats = [], None
         for p0 in range(0, config.BLOCK_SIZE, PIXEL_CHUNK):
-            args = (p0, PIXEL_CHUNK, fields, tile_x, tile_y, s_tile, seg_start, num_tiles,
-                    with_stats)
+            args = (p0, PIXEL_CHUNK, fields, tile_x, tile_y, seg, seg_start,
+                    num_tiles + n_scratch, with_stats)
             if torch.is_grad_enabled() and fields.requires_grad:
-                sums, st = checkpoint(_pixel_chunk, *args, use_reentrant=False)
+                sums, st = checkpoint(_pixel_chunk, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
             else:
                 sums, st = _pixel_chunk(*args)
             chunks.append(sums)
             if with_stats:
                 stats = st if stats is None else stats + st
-        tile_vals = torch.cat(chunks, dim=1).permute(2, 1, 0)              # [T,256,9]
+        tile_vals = torch.cat(chunks, dim=1)[..., :num_tiles].permute(2, 1, 0)  # [T,256,9]
 
         padded_h, padded_w = tiles_y * config.BLOCK_Y, tiles_x * config.BLOCK_X
 
@@ -332,9 +359,10 @@ def render_tiled_2dgs(means3d, opacities_raw, scales, rotations, shs,
             "distortion": img[..., 7],
             "num_rendered": ent["num_rendered"],
         }
+        if "overflow" in ent:
+            out["overflow"] = ent["overflow"]
         if with_stats:
-            per_gaussian = torch.zeros((stats.shape[0], means3d.shape[0]), dtype=stats.dtype,
-                                       device=stats.device).index_add_(1, s_gidx, stats)
+            per_gaussian = sum_per_gaussian(stats, s_gidx, means3d.shape[0])
             count = per_gaussian[0].to(torch.int32)
             out.update(gaussians_count=count, touched_pixels=count,
                        opacity_important_score=per_gaussian[1],

@@ -55,10 +55,19 @@ class _Blur(torch.autograd.Function):
         return _conv_blur(g.contiguous(), taps), None
 
 
+# The window's taps by (size, sigma, device, dtype): made once, so that a
+# training step copies nothing from the host (and a CUDA graph of it reads
+# the same tensor).
+_TAPS = {}
+
+
 def _blur(x: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
     """Separable Gaussian blur of [M, H, W] maps, 'same' zero padding."""
-    taps = torch.from_numpy(_gaussian_window_np(window_size, sigma)).to(x.device, x.dtype)
-    return _Blur.apply(x, taps)
+    key = (window_size, sigma, x.device, x.dtype)
+    if key not in _TAPS:
+        _TAPS[key] = torch.from_numpy(_gaussian_window_np(window_size, sigma)).to(x.device,
+                                                                                  x.dtype)
+    return _Blur.apply(x, _TAPS[key])
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,

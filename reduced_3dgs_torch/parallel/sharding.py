@@ -239,8 +239,10 @@ class ShardedTrainer(Trainer):
     trainer holds a slot for every camera, so each of them steps the deltas
     of the whole batch; a camera that only pads a short batch does not step
     its slot again. (The JAX trainer's maximum of the entry counts sizes its
-    key buffers; the port has none, and ``num_rendered`` stays this rank's
-    band's count.)"""
+    key buffers; the sharded step renders each band through the exact
+    binning instead, and ``num_rendered`` stays this rank's band's count.)
+    ``update_many`` runs a window as single steps, as JAX's does
+    (sharding.py:284-300): window fusion is the single-device engine's."""
 
     def __init__(self, model, dataset=None, mesh: Optional[Mesh] = None, **configs):
         super().__init__(model, dataset, **configs)
@@ -302,9 +304,10 @@ class ShardedTrainer(Trainer):
         radii = out["radii"]
         self.xyz_grad_accum += out["viewspace_grad_norm"]
         self.xyz_grad_denom += out["visible_count"]
-        self.max_radii2d = torch.maximum(
-            self.max_radii2d,
-            torch.where(out["visibility_filter"], radii, torch.zeros_like(radii)).float())
+        torch.maximum(self.max_radii2d,
+                      torch.where(out["visibility_filter"], radii,
+                                  torch.zeros_like(radii)).float(),
+                      out=self.max_radii2d)
         for p in params.values():
             p.grad = None
 
@@ -316,7 +319,7 @@ class ShardedTrainer(Trainer):
         self.maybe_advance_schedules()
         cams, n_orig = batch_cameras(cameras, self.mesh.shape["data"])
         camera = cams[self.mesh.data_rank]
-        extras = dict(outer.loss_scalars(), step=self.adam.count)
+        extras = self._extras(outer)
         adjustments = [outer.camera_adjustment(c) for c in cams]
         seen, leaves = camera, {}
         if adjustments[0] is not None:
@@ -340,6 +343,14 @@ class ShardedTrainer(Trainer):
         out = {k: v.detach() if torch.is_tensor(v) else v for k, v in out.items()}
         self._last_step_io_engine = (loss, out, camera)
         return loss, out
+
+    def update_many(self, outer, cameras):
+        """One ``update`` per item of ``cameras`` (each a step's cameras, or
+        one camera), with the PSNR of this rank's image."""
+        return self._single_steps(outer, cameras)
+
+    def _image_camera(self, cameras):
+        return batch_cameras(cameras, self.mesh.shape["data"])[0][self.mesh.data_rank]
 
 
 @torch.no_grad()

@@ -11,8 +11,9 @@ sharded engine every rank quantizes, and rank 0's dequantized parameters
 then overwrite the others': K-Means' centroid sums are float atomics on the
 card, so the replicas' codebooks may differ in the last bit.
 
-Not ported: ``fires_at``, which sizes the JAX package's fused multi-step
-windows; the port takes one step per call.
+``fires_at`` reports the quantize steps, so that a window of steps
+(``AbstractTrainer.step_many``) ends at each and the next starts with the
+model read that quantizes.
 """
 from __future__ import annotations
 
@@ -56,6 +57,11 @@ class QuantizeTrainerWrapper(TrainerWrapper):
     def fires(self, step: int) -> bool:
         return (self.quantize_from_iter <= step <= self.quantize_until_iter
                 and step % self.quantize_interval == 0)
+
+    def fires_at(self, step: int) -> bool:
+        # The model property quantizes when a step starts with curr_step at
+        # a quantize step: the same steps a window may not hold inside it.
+        return self.fires(step) or super().fires_at(step)
 
     @property
     def model(self):

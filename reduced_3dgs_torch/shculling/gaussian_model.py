@@ -94,13 +94,15 @@ class VariableSHGsplat2DGSGaussianModel(VariableSHGaussianModel):
     renderer."""
 
     def render(self, camera, mean2d_offset_ndc=None, *, params=None, degrees=None,
-               with_stats: bool = False, tile_row_offset: int = 0, tile_rows=None) -> dict:
+               with_stats: bool = False, tile_row_offset: int = 0, tile_rows=None,
+               key_buffer_size=None) -> dict:
         """As ``GaussianModel.render``, through ``render_tiled_2dgs`` (whose
         dict adds "normal" and "distortion")."""
         return render_tiled_2dgs(*self.render_array_args(params, degrees),
                                  self.render_settings(camera),
                                  mean2d_offset_ndc=mean2d_offset_ndc, with_stats=with_stats,
-                                 tile_row_offset=tile_row_offset, tile_rows=tile_rows)
+                                 tile_row_offset=tile_row_offset, tile_rows=tile_rows,
+                                 key_buffer_size=key_buffer_size)
 
 
 class CameraTrainableVariableSHGsplat2DGSGaussianModel(VariableSHGsplat2DGSGaussianModel,

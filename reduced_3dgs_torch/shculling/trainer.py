@@ -108,6 +108,10 @@ class SHCuller(TrainerWrapper):
     def fires(self, step: int) -> bool:
         return step in self.cull_at_steps
 
+
+    def fires_at(self, step: int) -> bool:
+        return self.fires(step) or super().fires_at(step)
+
     def optim_step(self):
         ret = super().optim_step()
         if self.fires(self.curr_step):

@@ -33,13 +33,23 @@ starts from a cameras.json).
 ``training`` runs one trainer step per camera (n_data cameras a step under a
 mesh, as JAX train.py:81-84 takes them), in an order shuffled each epoch,
 and saves the model's PLY, cameras.json and, with a quantizer, the
-quantized PLY at the ``save_iterations`` and at the end. cameras.json holds
+quantized PLY at the ``save_iterations`` and at the end. It takes the steps
+in windows (JAX train.py:86-175, the production stepping mode): up to
+``R3DGS_WINDOW`` steps (default 16; 1 turns windows off) go through one
+``trainer.step_many``, which on the card replays one captured CUDA graph
+per step, and a window stops before any step after which a hook would fire
+or a schedule advance (``max_window``), at the end of the epoch, at a save
+iteration and at the end of training, so the events fire after exactly the
+steps they fire after one step at a time. A mesh with more than one data
+rank takes windows of one step. cameras.json holds
 each view's pose as the trainer learned it (``trainer.adjusted_camera``;
 the start pose outside the camera modes), so ``--load_camera`` of it renders
 what the trainer renders. (The JAX package writes the start poses there in
-every mode.) It reads the loss on the host only every ``log_interval``
-steps, where it prints the progress; on a non-finite loss it writes the
-trainer's state to a failure snapshot (``utils.debug``) and raises.
+every mode.) It reads the loss on the host only at the end of a window that
+holds a multiple of ``log_interval``, where it prints the progress; on a
+non-finite loss it writes the trainer's state to a failure snapshot
+(``utils.debug``) and raises, naming the window's first step as the JAX
+loop does.
 """
 from __future__ import annotations
 
@@ -118,7 +128,9 @@ def training(dataset, gaussians, trainer: AbstractTrainer, quantizer, destinatio
     of a mesh must pass the same). ``quantizer``, when given, also writes
     the quantized PLY at each save. Under a sharded engine each step takes
     the next n_data cameras, every rank the same list; rank 0 alone prints
-    and writes the files while the others wait."""
+    and writes the files while the others wait. Steps go in windows of up
+    to ``R3DGS_WINDOW`` (see the module docstring); the loss is read on the
+    host at the end of each window that holds a log step."""
     device = resolve_device(device)
     model_device = gaussians._xyz.device
     if model_device.type != device.type:
@@ -149,26 +161,46 @@ def training(dataset, gaussians, trainer: AbstractTrainer, quantizer, destinatio
                                          os.path.join(save_path, "point_cloud_quantized.ply"))
         barrier()
 
-    for step in range(1, iteration + 1):
+    # Windows of one step under a mesh with several data ranks (JAX
+    # train.py:96-100).
+    window_max = int(os.environ.get("R3DGS_WINDOW", 16)) if n_data == 1 else 1
+    step = 1
+    while step <= iteration:
         pos = (step - 1) % len(dataset)
         if pos == 0:
             if epoch_psnr:
                 avg_psnr = float(torch.stack(epoch_psnr).mean())
             epoch_psnr = []
             rng.shuffle(order)
+        k = trainer.max_window(window_max) if window_max > 1 else 1
+        k = min(k, len(dataset) - pos, iteration - step + 1)
+        for s in save_iterations:
+            if step <= s <= step + k - 1:
+                k = s - step + 1
         if mesh is None:
-            camera = dataset[order[pos]]
-            loss, out = trainer.step(camera)
+            cameras = [dataset[order[pos + j]] for j in range(k)]
+            camera = cameras[-1]
         else:
-            cameras = [dataset[order[(cursor + j) % len(order)]] for j in range(n_data)]
-            cursor = (cursor + n_data) % len(order)
-            camera = cameras[mesh.data_rank]    # the camera of this rank's image
-            loss, out = trainer.step(cameras)
-        losses.append(loss)
-        if camera.ground_truth_image is not None:
-            epoch_psnr.append(psnr(out["render"].detach(), camera.ground_truth_image).mean())
-        ema_loss = 0.4 * loss + 0.6 * ema_loss
-        if step % log_interval == 0:
+            cameras = []
+            for _ in range(k):
+                cameras.append([dataset[order[(cursor + j) % len(order)]]
+                                for j in range(n_data)])
+                cursor = (cursor + n_data) % len(order)
+            camera = cameras[-1][mesh.data_rank]    # the camera of this rank's image
+        if k == 1:
+            loss, out = trainer.step(cameras[0])
+            window_losses = [loss]
+            if camera.ground_truth_image is not None:
+                epoch_psnr.append(psnr(out["render"].detach(),
+                                       camera.ground_truth_image).mean())
+        else:
+            window_losses, ys = trainer.step_many(cameras)
+            epoch_psnr.extend(ys.get("psnr", ()))
+        losses.extend(window_losses)
+        for loss in window_losses:
+            ema_loss = 0.4 * loss + 0.6 * ema_loss
+        last = step + k - 1
+        if log_interval - (step - 1) % log_interval <= k:
             loss_now = float(ema_loss)
             if not math.isfinite(loss_now):
                 path = trainer_snapshot(trainer.engine, "nonfinite_loss", camera,
@@ -176,11 +208,12 @@ def training(dataset, gaussians, trainer: AbstractTrainer, quantizer, destinatio
                 raise RuntimeError(f"non-finite loss {loss_now} at step {step}"
                                    + (f"; state dumped to {path}" if path else ""))
             if main_rank:
-                print(f"Training {step}/{iteration}: epoch {step // len(dataset)} "
+                print(f"Training {last}/{iteration}: epoch {last // len(dataset)} "
                       f"loss {loss_now:.6f} psnr {avg_psnr:.4f} n {gaussians.num_points}",
                       flush=True)
-        if step in save_iterations:
-            save(step)
+        if last in save_iterations:
+            save(last)
+        step += k
     save(iteration)
     return losses
 

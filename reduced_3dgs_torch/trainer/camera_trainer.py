@@ -43,7 +43,7 @@ import torch
 from ..dataset.camera import Camera
 from ..ops import projection as proj
 from .abc import AbstractTrainer, TrainerWrapper
-from .optimizer import AdamState, adam_init, adam_update
+from .optimizer import AdamState, adam_count, adam_init, adam_update
 
 
 def _apply_camera_delta(camera: Camera, cam_params: Dict[str, torch.Tensor]) -> Camera:
@@ -127,7 +127,7 @@ class CameraTrainer(TrainerWrapper):
             key = self._slot(self.camera_dataset[i])
             self._cam_params[key] = {k: tensor(v).requires_grad_(True) for k, v in p.items()}
             s = adam[i]
-            self._cam_adam[key] = AdamState(count=int(s["count"]),
+            self._cam_adam[key] = AdamState(count=adam_count(int(s["count"]), device),
                                             m={k: tensor(v) for k, v in s["m"].items()},
                                             v={k: tensor(v) for k, v in s["v"].items()})
         return self

@@ -26,7 +26,7 @@ def save_checkpoint(trainer, path: str):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat = {f"{group}/{k}": v.detach().cpu().numpy()
             for group, tree in engine.state_trees().items() for k, v in tree.items()}
-    flat["meta/adam_count"] = np.asarray(engine.adam.count, np.int32)
+    flat["meta/adam_count"] = np.asarray(int(engine.adam.count), np.int32)
     n = engine.model.num_points
     meta = {"n_alive": n, "curr_step": int(engine.curr_step), "capacity": n,
             "active_sh_degree": int(engine.model.active_sh_degree),
@@ -47,7 +47,7 @@ def load_checkpoint(trainer, path: str):
                  for group, tree in engine.state_trees().items()}
         adam_count = int(data["meta/adam_count"])
     engine.set_state_trees(trees)
-    engine.adam.count = adam_count
+    engine.adam.count.fill_(adam_count)
     engine.curr_step = meta["curr_step"]
     engine.model.active_sh_degree = meta["active_sh_degree"]
     engine.spatial_lr_scale = meta["spatial_lr_scale"]

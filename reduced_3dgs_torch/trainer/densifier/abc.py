@@ -11,9 +11,16 @@ densification statistics) loses the removed rows and gains the new ones
 together. New rows get zero Adam moments and statistics and the model's
 ``aux_for_new_points``.
 
-Not ported: the JAX package's capacity, its capacity-static device fast
-path (``_apply_instruction_device``) with its overflow fallback, and
-``fires_at``; they exist for XLA's static shapes and fused step windows.
+Each densifier declares ``fires_at(step)``, whether its
+``densify_and_prune`` does work at ``step``, so that a window of steps
+(``AbstractTrainer.step_many``) ends there: the base densifier says yes
+(an unknown densifier ends every window), ``NoopDensifier`` no, and a
+``DensifierWrapper`` that overrides ``densify_and_prune`` without declaring
+its own ends every window (JAX densifier/abc.py:73-112, 143-144).
+
+Not ported: the JAX package's capacity and its capacity-static device fast
+path (``_apply_instruction_device``) with its overflow fallback; they exist
+for XLA's static shapes.
 """
 from __future__ import annotations
 
@@ -67,12 +74,19 @@ class AbstractDensifier(abc.ABC):
     def densify_and_prune(self, loss, out, camera, step: int) -> DensificationInstruction:
         ...
 
+    def fires_at(self, step: int) -> bool:
+        """Would ``densify_and_prune`` do work at ``step``?"""
+        return True
+
 
 class NoopDensifier(AbstractDensifier):
     """Chain terminator."""
 
     def densify_and_prune(self, loss, out, camera, step: int) -> DensificationInstruction:
         return DensificationInstruction()
+
+    def fires_at(self, step: int) -> bool:
+        return False
 
 
 class DensifierWrapper(AbstractDensifier):
@@ -87,6 +101,13 @@ class DensifierWrapper(AbstractDensifier):
 
     def densify_and_prune(self, loss, out, camera, step: int) -> DensificationInstruction:
         return self.base_densifier.densify_and_prune(loss, out, camera, step)
+
+    def fires_at(self, step: int) -> bool:
+        cls = type(self)
+        if (cls.densify_and_prune is not DensifierWrapper.densify_and_prune
+                and cls.fires_at is DensifierWrapper.fires_at):
+            return True
+        return self.base_densifier.fires_at(step)
 
 
 def _inject_trainer(densifier: AbstractDensifier, trainer: AbstractTrainer):
@@ -131,6 +152,9 @@ class DensificationTrainer(TrainerWrapper):
         self.apply_instruction(self.densifier.densify_and_prune(loss, out, camera,
                                                                 self.curr_step))
         return ret
+
+    def fires_at(self, step: int) -> bool:
+        return self.densifier.fires_at(step) or super().fires_at(step)
 
     def apply_instruction(self, instruction: DensificationInstruction):
         """Remove the rows of ``remove_mask`` (over the rows that existed

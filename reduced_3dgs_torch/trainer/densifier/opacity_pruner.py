@@ -63,6 +63,10 @@ class OpacityPruner(DensifierWrapper):
         return (self.prune_from_iter <= step <= self.prune_until_iter
                 and step % self.prune_interval == 0)
 
+
+    def fires_at(self, step: int) -> bool:
+        return self.fires(step) or super().fires_at(step)
+
     def densify_and_prune(self, loss, out, camera, step: int) -> DensificationInstruction:
         ret = super().densify_and_prune(loss, out, camera, step)
         if self.fires(step):

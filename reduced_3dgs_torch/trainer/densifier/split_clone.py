@@ -81,6 +81,10 @@ class SplitCloneDensifier(DensifierWrapper):
         return (self.densify_from_iter <= step <= self.densify_until_iter
                 and step % self.densify_interval == 0)
 
+
+    def fires_at(self, step: int) -> bool:
+        return self.fires(step) or super().fires_at(step)
+
     @torch.no_grad()
     def densify_and_prune(self, loss, out, camera, step: int,
                           samples: Optional[torch.Tensor] = None) -> DensificationInstruction:

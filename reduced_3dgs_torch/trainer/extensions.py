@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ..utils.math import abs_diff, inverse_sigmoid
@@ -41,6 +40,10 @@ class OpacityResetter(TrainerWrapper):
     def fires(self, step: int) -> bool:
         return (step % self.opacity_reset_interval == 0
                 and 0 < step <= self.opacity_reset_until_iter)
+
+
+    def fires_at(self, step: int) -> bool:
+        return self.fires(step) or super().fires_at(step)
 
     def optim_step(self):
         ret = super().optim_step()
@@ -67,12 +70,14 @@ def OpacityResetTrainerWrapper(base_trainer_constructor, model, dataset,
         opacity_reset_until_iter=opacity_reset_until_iter)
 
 
-def depth_weight(step: int, log_wi: float, log_wf: float, max_steps: int) -> float:
-    """exp(log_wi (1 - t) + log_wf t) with t = clip(step / max_steps, 0, 1),
-    in float32 as the JAX package computes it."""
-    f32 = np.float32
-    t = np.clip(f32(step) / f32(max_steps), f32(0.0), f32(1.0))
-    return float(np.exp(f32(log_wi) * (f32(1.0) - t) + f32(log_wf) * t))
+def depth_weight(step: torch.Tensor, log_wi: float, log_wf: float,
+                 max_steps: int) -> torch.Tensor:
+    """exp(log_wi (1 - t) + log_wf t) with t = clip(step / max_steps, 0, 1)
+    for Adam's count ``step`` (a 0-d tensor): a 0-d float32 tensor,
+    computed where the count lives as the JAX package computes it in its
+    step, so that a captured step replays it."""
+    t = torch.clamp(step.to(torch.float32) / max_steps, 0.0, 1.0)
+    return torch.exp(log_wi * (1.0 - t) + log_wf * t)
 
 
 class DepthSupervisor(TrainerWrapper):

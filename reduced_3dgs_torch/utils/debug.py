@@ -11,9 +11,10 @@ written per process, so a failing loop cannot fill the disk.
 ``R3DGS_SNAPSHOT_DIR`` sets the directory (default ./failure_snapshots;
 "0" turns snapshots off).
 
-The JAX engine also snapshots a key buffer that keeps overflowing; the port
-sizes each render's entries exactly and has no such buffer, so that
-snapshot is not ported.
+The engine also snapshots a static key buffer that keeps overflowing: the
+third drain in a row with an overflow writes ``persistent_overflow_*``
+(``BaseTrainer._note_overflow``), with the largest entry count and the
+buffer's sizes under ``extra/``.
 """
 from __future__ import annotations
 

@@ -70,13 +70,14 @@ def steps_job(work):
     m = model()
     ct = CameraTrainer(ShardedTrainer(m, ds, mesh=mesh), ds)
     losses = [ct.step([ds[0]])[0]]
-    count_after_short = ct._cam_adam[id(ds[0])].count
+    count_after_short = int(ct._cam_adam[id(ds[0])].count)
     losses += [ct.step([ds[0], ds[1]])[0] for _ in range(2)]
     res["cameras"] = dict(_state(m), losses=torch.stack(losses),
                           count_after_short=count_after_short,
                           **{f"{k}{i}": ct._cam_params[id(ds[i])][k].detach().clone()
                              for i in range(2) for k in ("rot", "trans")},
-                          **{f"count{i}": ct._cam_adam[id(ds[i])].count for i in range(2)})
+                          **{f"count{i}": int(ct._cam_adam[id(ds[i])].count)
+                             for i in range(2)})
 
     m = model()
     count, op, ta = sharded_prune_list(m, ds, mesh)

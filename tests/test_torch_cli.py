@@ -338,6 +338,8 @@ def main_vs_jax(src, out, mode, monkeypatch, load_ply, steps=TWODGS_STEPS,
         return losses
 
     monkeypatch.setattr(ttrain, "training", run)
+    # One step a call: torch_half drives the port through trainer.step.
+    monkeypatch.setenv("R3DGS_WINDOW", "1")
     argv = ["-s", src, "-d", out, "-i", str(steps), "--device", "cpu", "--backend",
             "gsplat-2dgs", "--mode", mode, "-l", load_ply]
     for k, v in config.items():

@@ -4,7 +4,9 @@ copies of the kernel with one deliberate fault each against the same bar.
 On the card the kernel as written must pass ``chip_smoke.compare_backward``
 on the 200k-Gaussian 544x976 bench scene (cotangents from a real loss and
 random ones) and on the opaque scene, and each faulty copy must fail it on
-at least one of them. Run there from the repository root with
+at least one of them. A static key buffer of twice the entries gives the
+exact buffer's gradients within the same bar, whatever its tail holds, and
+a copy that sums the whole buffer per Gaussian fails it. Run there from the repository root with
 
     python -m pytest --noconftest -m cuda -s tests/test_torch_composite_bwd_card.py
 
@@ -13,6 +15,7 @@ does not need). Without a card those tests skip; the check that every fault
 still applies to the kernel's source runs everywhere.
 """
 import ctypes
+import functools
 import os
 import subprocess
 
@@ -139,3 +142,70 @@ def test_faulty_kernel_fails_the_bar(fault, cases, faulty_libraries, monkeypatch
             except AssertionError:
                 failed.append(name)
     assert failed, f"{fault} passed the bar on every scene"
+
+
+# The static key buffer's tail (tiled.bin_and_sort with key_buffer_size):
+# B3 writes no gradient past the last tile's range, and what the buffer
+# holds there must reach no Gaussian. The tail is filled with NaN after the
+# kernel runs, as memory it never wrote may hold anything.
+def _nan_tail(kernel):
+    @functools.wraps(kernel)  # keeps the launch counter the kernel's wrapper adds to
+    def composite_bwd(e, range_start, range_end, *args, **kwargs):
+        grads = kernel(e, range_start, range_end, *args, **kwargs)
+        grads[:, int(range_end[-1]):] = float("nan")
+        return grads
+    return composite_bwd
+
+
+def _sum_whole_buffer(per_entry, s_gidx, n):
+    """The fault: one index_add_ over the whole buffer, the tail's ids taken
+    as the last Gaussian's (where the binner's running maximum leaves them)."""
+    return torch.zeros((per_entry.shape[0], n), dtype=per_entry.dtype,
+                       device=per_entry.device).index_add_(1, torch.clamp(s_gidx, max=n - 1),
+                                                           per_entry)
+
+
+def _tail_gradients(card, monkeypatch):
+    """The loss gradient of every parameter of the perturbed bench model at
+    camera 0 with the key buffer at its entry count and at twice it."""
+    import chip_smoke as cs
+    from reduced_3dgs_torch.ops.rasterize import composite
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+
+    params = cs.bench_scene(0)
+    cam = cs.view_camera(cs.view_poses()[0], card, bg_color=cs.LOSS_BG)
+    with torch.no_grad():
+        gt = torch.clamp(VariableSHGaussianModel(3, device=card).load_numpy(params)(cam)["render"],
+                         0, 1)
+    monkeypatch.setattr(composite, "composite_bwd", _nan_tail(composite.composite_bwd))
+    grads, total = {}, None
+    for factor in (1, 2):
+        model = VariableSHGaussianModel(3, device=card).load_numpy(cs.perturbed(params))
+        if total is None:
+            with torch.no_grad():
+                total = model(cam)["num_rendered"]
+        out = model.render(cam, key_buffer_size=factor * total)
+        torch.mean((out["render"] - gt) ** 2).backward()
+        grads[factor] = {k: p.grad for k, p in model.param_dict().items()}
+    return grads
+
+
+def _tail_within_bar(grads):
+    """Every parameter's gradient with the tail within chip_smoke's backward
+    bar (TOL_BWD_REL of its largest value) of the exact buffer's."""
+    import chip_smoke as cs
+    return all(bool(torch.isfinite(grads[2][k]).all())
+               and float((grads[2][k] - g).abs().max()) <= cs.TOL_BWD_REL * float(g.abs().max())
+               for k, g in grads[1].items())
+
+
+@pytest.mark.cuda
+def test_buffer_tail_reaches_no_gaussian(card, monkeypatch):
+    assert _tail_within_bar(_tail_gradients(card, monkeypatch))
+
+
+@pytest.mark.cuda
+def test_whole_buffer_sum_fails_the_bar(card, monkeypatch):
+    from reduced_3dgs_torch.ops.rasterize import composite
+    monkeypatch.setattr(composite, "sum_per_gaussian", _sum_whole_buffer)
+    assert not _tail_within_bar(_tail_gradients(card, monkeypatch))

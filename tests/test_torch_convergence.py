@@ -53,6 +53,16 @@ TOL_PARAMS = 1e-6
 TOL_PSNR_DB = 1e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The toy runs gain nothing from intra-op threads, and beside the
+    other test processes on the same cores they only wait on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def load_jax_tool():
     spec = importlib.util.spec_from_file_location(
         "jax_convergence_proof", os.path.join(REPO, "tools", "convergence_proof.py"))

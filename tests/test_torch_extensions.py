@@ -60,7 +60,8 @@ def test_depth_term_matches_jax(step):
     d = torch.from_numpy(depth).requires_grad_(True)
     t = torch.from_numpy(final_t).requires_grad_(True)
     tv = t_loss(None, {"depth": d, "final_T": t},
-                SimpleNamespace(ground_truth_depth=torch.from_numpy(gt)), {"step": step})
+                SimpleNamespace(ground_truth_depth=torch.from_numpy(gt)),
+                {"step": torch.tensor(step, dtype=torch.int32)})
     tv.backward()
     assert float(tv.detach()) > 0
     np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-5)
@@ -69,7 +70,8 @@ def test_depth_term_matches_jax(step):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-4,
                                    atol=1e-6 * float(np.abs(jg).max()))
     no_depth = t_loss(None, {"depth": d, "final_T": t},
-                      SimpleNamespace(ground_truth_depth=None), {"step": step})
+                      SimpleNamespace(ground_truth_depth=None),
+                      {"step": torch.tensor(step, dtype=torch.int32)})
     assert float(no_depth) == 0.0
 
 
@@ -138,7 +140,7 @@ def test_loss_sees_the_pre_increment_step():
             base = self.base_trainer.loss_pure()
 
             def loss(params, out, camera, extras):
-                seen.append((extras["step"], self.engine.adam.count))
+                seen.append((extras["step"], self.engine.adam.count.clone()))
                 return base(params, out, camera, extras)
             return loss
 
@@ -146,5 +148,6 @@ def test_loss_sees_the_pre_increment_step():
     for it in range(3):
         tr.step(tr.base_trainer.dataset[it % 2])
     assert seen == [(0, 0), (1, 1), (2, 2)] and tr.engine.adam.count == 3
-    assert [text.depth_weight(s, 0.0, np.log(0.01), 2) for s in (0, 1, 2, 3)] == pytest.approx(
+    assert [float(text.depth_weight(torch.tensor(s, dtype=torch.int32), 0.0, np.log(0.01), 2))
+            for s in (0, 1, 2, 3)] == pytest.approx(
         [1.0, 0.1, 0.01, 0.01], rel=1e-6)

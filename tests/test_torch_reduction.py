@@ -95,6 +95,8 @@ def runs(tmp_path_factory):
 
     ttr.step = step
     mp = pytest.MonkeyPatch()
+    # One step a call: the recorder above wraps trainer.step.
+    mp.setenv("R3DGS_WINDOW", "1")
     mp.setattr(timp, "prune_list", record_prune_list)
     mp.setattr(tsh, "calculate_colours_variance", record_colours)
     try:

@@ -265,7 +265,8 @@ def test_checkpointed_chunks_give_equal_gradients(case, monkeypatch):
     checked = torch_grads(case)
     monkeypatch.setattr(t2, "checkpoint", unchecked)
     plain = torch_grads(case)
-    assert calls and all(kw == {"use_reentrant": False} for kw in calls)
+    assert calls and all(kw == {"use_reentrant": False, "preserve_rng_state": False}
+                         for kw in calls)
     for name, a, b in zip(INPUTS, checked, plain):
         assert torch.equal(a, b), name
 
