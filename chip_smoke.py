@@ -138,10 +138,23 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            train.training with R3DGS_WINDOW=16: the windows against the
            schedule's, N moving only after event steps, the launches
 
+  phase 16 the one-program event sweeps (importance counts and the SH cull's
+           colour statistics through the static key buffer, one captured
+           CUDA graph replayed per view): (a) each sweep's per-view body at
+           the bench scene under torch.cuda.set_sync_debug_mode("error");
+           (b) the graph sweeps against the eager exact per-view loop over
+           the 4 views, and their launches; (c) the eager loop and the graph
+           sweep timed at 4 and 64 views for the importance sweep (its first
+           call, capture included, and a repeat) and the cull, the capture's
+           time and pool memory, K and the passes, and the idle share of one
+           graph sweep under torch.profiler; (d) a forced overflow, regrown
+           in passes; (e) the statistics compositor's launches of phases 7,
+           9, 14 and 15 against their schedules
+
 Phases 0-14 run with R3DGS_WINDOW=1 (one step per trainer.step call, which
 their checks wrap); phase 15 sets 16 for its training run. The kernels
-line's launches are the sums of phases 11, 14 and 15 (each also given by
-phase). Any failed check raises, so the script exits non-zero without its last
+line's launches are the sums of phases 11, 14, 15 and 16 (each also given
+by phase). Any failed check raises, so the script exits non-zero without its last
 line. The last two lines are a JSON record of each kernel and
 {"ok": true, "device": {...}}. Without CUDA it exits with status 2.
 """
@@ -350,6 +363,21 @@ WINDOW_WARMUP, WINDOW_TIMED = 2, 5
 # of the flagship and of the unpruned baseline), never cut; its bars are the
 # tool's own.
 CONVERGENCE_PRESET = "full"
+# Phase 16: the one-program event sweeps. (b) the graph sweeps against the
+# eager exact ones at N_VIEWS views: counts exact, scores within
+# TOL_STATS_REL of the largest (B2's bar), the cull's degrees equal but
+# where a statistic of the eager passes lies within DECISION_MARGIN of its
+# threshold (thresholds that split the scene's Gaussians, from the eager
+# statistics), and its features within TOL_SWEEP_FEATURES; the cull's
+# timings use SHCuller's defaults. (c) times at each
+# of SWEEP_VIEWS views: REPEATS runs at N_VIEWS, SWEEP_REPEATS at more, each
+# after one warm-up. (d) a forced overflow from a key buffer of the largest
+# view's entries / SWEEP_OVERFLOW_DIVISOR.
+SWEEP_VIEWS = (N_VIEWS, 64)
+SWEEP_REPEATS = 3
+TOL_SWEEP_FEATURES = 1e-6
+SWEEP_OVERFLOW_DIVISOR = 3
+CULL_STD, CULL_CDIST = 0.04, 6.0
 
 
 def log(msg):
@@ -2759,8 +2787,9 @@ def convergence_phase(card, wrappers, tmp):
     workdir = os.path.join(tmp, "convergence")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    result, launches = counted(wrappers, lambda: cp.run(
-        cfg, device="cuda", workdir=workdir, preset=CONVERGENCE_PRESET, on_step=on_step))
+    with counting_regrows() as regrows:
+        result, launches = counted(wrappers, lambda: cp.run(
+            cfg, device="cuda", workdir=workdir, preset=CONVERGENCE_PRESET, on_step=on_step))
     t_end = time.perf_counter()
     wall = t_end - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -2771,13 +2800,18 @@ def convergence_phase(card, wrappers, tmp):
     rows = [s for s in range(1, iters + 1) if s % every == 0 or s == iters]
     eval_views = len(range(0, n_cams, max(1, n_cams // 6)))
     events = watch["events"]["reduced"]
+    # One statistics render per view and sweep pass: a pass more for each
+    # key buffer regrown by a sweep.
+    sweeps = len(events["ImportancePruner"]) + 2 * len(events["SHCuller"])
+    passes = sweeps + regrows.count
     expected = {"composite_fwd": 2 * iters + n_cams + (1 + len(rows) + 1) * eval_views,
-                "composite_fwd_stats": n_cams * (len(events["ImportancePruner"])
-                                                 + 2 * len(events["SHCuller"])),
+                "composite_fwd_stats": n_cams * passes,
                 "composite_bwd": 2 * iters}
     log(f"phase 14: event steps {json.dumps(events)}; baseline's "
         f"{json.dumps({k: (v[0], v[-1], len(v)) for k, v in watch['events']['baseline'].items() if v})} "
-        "(first, last, count); launches " f"{launches}, expected {expected}")
+        f"(first, last, count); sweep passes {passes} for {sweeps} sweeps ({regrows.count} "
+        f"key buffers regrown); launches "
+        f"{launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"phase 14 launched {launches}, expected {expected}")
 
@@ -2834,7 +2868,7 @@ def convergence_phase(card, wrappers, tmp):
         f"against {result['history'][-1]['psnr']:.4f} dB of the trained model")
     if quantized.num_points != result["n_points_final"] or not math.isfinite(psnr_q):
         raise AssertionError("the quantized PLY does not load back whole")
-    return launches
+    return launches, expected["composite_fwd_stats"]
 
 
 def sync_error(fn):
@@ -3149,6 +3183,303 @@ def window_phase(card, params_p, src, wrappers, tmp, dense_config):
     if failures:
         raise AssertionError("phase 15 (d): " + "; ".join(failures))
     log(f"phase 15 [{card}]: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def sweep_poses(n):
+    """n COLMAP poses spread over the range of view_poses' four: rotations
+    about y within +-0.045 and about x of +-0.01, translations within theirs."""
+    poses = []
+    for i in range(n):
+        u = i / max(n - 1, 1)
+        a, b = 0.09 * (u - 0.5), 0.02 * ((i % 2) - 0.5)
+        q = np.array([math.cos(a / 2) * math.cos(b / 2), math.sin(b / 2) * math.cos(a / 2),
+                      math.sin(a / 2) * math.cos(b / 2), -math.sin(a / 2) * math.sin(b / 2)])
+        poses.append((q / np.linalg.norm(q),
+                      np.array([0.075 * (2 * u - 1), 0.02 * (i % 2), 0.09 * u])))
+    return poses
+
+
+class eager_sweeps:
+    """Within it the sweeps take the eager exact per-view loop, as for
+    cameras that are not stackable."""
+
+    def __enter__(self):
+        from reduced_3dgs_torch.dataset import camera as camera_mod
+        self.module, self.stackable = camera_mod, camera_mod.stackable
+        camera_mod.stackable = lambda cameras: False
+
+    def __exit__(self, *exc):
+        self.module.stackable = self.stackable
+
+
+class counting_regrows:
+    """Within it, ``count`` is the number of key buffers the event sweeps
+    regrew and wrote back to their engine (``BaseTrainer.sweep_buffer``):
+    each is one more pass of the statistics compositor over the views."""
+
+    def __enter__(self):
+        from reduced_3dgs_torch.trainer import BaseTrainer
+        self.cls, self.set, self.count = BaseTrainer, BaseTrainer.set_key_buffer, 0
+
+        def counting(engine, camera, size):
+            self.count += 1
+            self.set(engine, camera, size)
+
+        BaseTrainer.set_key_buffer = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.set_key_buffer = self.set
+
+
+def cull_thresholds(model, cams):
+    """(std threshold, distance threshold, near): thresholds of the SH cull
+    that split ``model``'s Gaussians over ``cams``, each halfway between two
+    neighbouring values of the eager passes' statistics (the 40th percentile
+    of the colour std; the median band-1 distance of the Gaussians the
+    first pass leaves above degree 0), and the [N] bool mask of the
+    Gaussians whose decision lies within DECISION_MARGIN of its threshold."""
+    from reduced_3dgs_torch.ops.shculling_stats import calculate_colours_variance
+    from reduced_3dgs_torch.shculling.trainer import _low_variance_colour_culling
+
+    def between(values, q):
+        v = torch.unique(values.double())
+        i = int(q * (v.numel() - 1))
+        return float((v[i] + v[i + 1]) / 2)
+
+    params = {k: p.detach() for k, p in model.param_dict().items()}
+    degrees = model._degrees
+    with eager_sweeps():
+        _, var, mean = calculate_colours_variance(cams, model, params, degrees, 3)
+        std = torch.nan_to_num(torch.sqrt(var)).mean(dim=2)[:, 0]
+        std_thr = between(std, 0.4)
+        d2, dc, rest = _low_variance_colour_culling(
+            degrees, params["features_dc"], params["features_rest"], std_thr, var, mean)
+        dist = torch.nan_to_num(calculate_colours_variance(
+            cams, model, dict(params, features_dc=dc, features_rest=rest), d2, 3)[0])
+    cdist = between(dist[d2 > 0, 1], 0.5)
+    near = (std - std_thr).abs() <= DECISION_MARGIN * std_thr
+    near |= ((dist[:, 1:3] - cdist).abs() <= DECISION_MARGIN * cdist).any(dim=1)
+    return std_thr, cdist, near
+
+
+def compare_sweeps(card, model, cams, label):
+    """The static sweeps of ``model`` over ``cams`` (on the card, sweep
+    graphs for views of one FoV) against the eager exact loop: the importance counts (exact) and scores (within TOL_STATS_REL of
+    the largest), then the SH cull of two copies of ``model`` at
+    ``cull_thresholds`` (degrees equal but near a threshold, features
+    within TOL_SWEEP_FEATURES). Raises on a difference; returns the graph
+    sweeps' compositor launches."""
+    from reduced_3dgs_torch.importance import trainer as imp
+    from reduced_3dgs_torch.ops.rasterize import composite
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel, cull_sh_bands
+    wrappers = {"composite_fwd": composite.composite_fwd,
+                "composite_fwd_stats": composite.composite_fwd_stats,
+                "composite_bwd": composite.composite_bwd}
+    params = {k: p.detach().cpu().numpy() for k, p in model.param_dict().items()}
+    degrees = model._degrees.cpu().numpy()
+    culled = {how: VariableSHGaussianModel(3, device=model._xyz.device).load_numpy(params,
+                                                                                   degrees)
+              for how in ("graph", "eager")}
+    std_thr, cdist, near = cull_thresholds(model, cams)
+
+    def graph_sweeps():
+        counts = imp.prune_list(model, cams)
+        cull_sh_bands(culled["graph"], cams, cdist, std_thr)
+        return counts
+
+    graph, launches = counted(wrappers, graph_sweeps)
+    # A pass launches the statistics compositor once per view.
+    passes = launches["composite_fwd_stats"] / len(cams)
+    exact = imp.exact_counts(model, cams)
+    with eager_sweeps():
+        cull_sh_bands(culled["eager"], cams, cdist, std_thr)
+    failures = []
+    if launches != {"composite_fwd": 0, "composite_fwd_stats": 3 * len(cams),
+                    "composite_bwd": 0}:
+        failures.append(f"launched {launches}: {passes:g} passes, not one a sweep")
+    count_diff = int((graph[0] != exact[0]).sum())
+    score_rel = [float((g - e).abs().max() / e.abs().max()) for g, e in zip(graph[1:], exact[1:])]
+    if count_diff or not all(r <= TOL_STATS_REL for r in score_rel):
+        failures.append(f"importance: {count_diff} counts differ, scores {score_rel}")
+    deg_g, deg_e = culled["graph"]._degrees, culled["eager"]._degrees
+    differ = deg_g != deg_e
+    same = ~differ
+    feat_err = {k: float((culled["graph"].param_dict()[k] - culled["eager"].param_dict()[k])
+                         .detach()[same].abs().max())
+                for k in ("features_dc", "features_rest")}
+    if (differ & ~near).any():
+        failures.append(f"{int((differ & ~near).sum())} degrees differ away from a threshold")
+    if not all(v <= TOL_SWEEP_FEATURES for v in feat_err.values()):
+        failures.append(f"features differ by {feat_err}")
+    hist = torch.bincount(deg_g.long(), minlength=4).tolist()
+    if not (hist[0] > 0 and sum(hist[1:3]) > 0 and hist[3] > 0):
+        failures.append(f"the cull left degrees {hist}: the thresholds split nothing")
+    log(f"phase 16 (b) [{card}]: {label}: static sweeps over {len(cams)} views against the "
+        f"eager exact loop: {passes:g} passes, launches {launches}; importance counts differing "
+        f"{count_diff} of {exact[0].numel()}, scores max |difference| / max |value| "
+        f"{score_rel[0]:.3e} (opacity), {score_rel[1]:.3e} (T_alpha); cull at std {std_thr:.6g} "
+        f"and distance {cdist:.6g}: degrees 0-3 {hist}, "
+        f"differing {int(differ.sum())} (within {DECISION_MARGIN} of a threshold "
+        f"{int(near.sum())}), features max |difference| {feat_err}")
+    if failures:
+        raise AssertionError(f"phase 16 (b) {label}: " + "; ".join(failures))
+    return launches
+
+
+def sweep_phase(card, params, b2_runs):
+    """Phase 16: the one-program event sweeps. (a) the per-view bodies under
+    the sync debug mode; (b) the graph sweeps against the eager exact loop;
+    (c) times at SWEEP_VIEWS views (the eager loop, the graph sweep as an
+    event runs it, a capture included, and a graph's replays alone), the
+    captures, K and the idle shares; (d) a forced overflow; (e)
+    ``b2_runs``, {phase: (the statistics compositor's launches, its
+    schedule's)}. Returns (b)'s launches."""
+    from reduced_3dgs_torch.dataset.camera import sweep_cameras
+    from reduced_3dgs_torch.importance import trainer as imp
+    from reduced_3dgs_torch.ops import shculling_stats as stats
+    from reduced_3dgs_torch.ops.rasterize import composite, sweep
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel, cull_sh_bands
+    from reduced_3dgs_torch.trainer import BaseTrainer
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    views = {n: sweep_cameras([view_camera(p, dev) for p in sweep_poses(n)])
+             for n in SWEEP_VIEWS}
+    cams = views[N_VIEWS]
+    model = VariableSHGaussianModel(3, device=dev).load_numpy(params)
+    n = model.num_points
+    with torch.no_grad():
+        entries = {nv: [int(model.render(c)["num_rendered"]) for c in vs]
+                   for nv, vs in views.items()}
+    K = sweep.start_key_buffer(n, cams[0])
+    p = {k: v.detach() for k, v in model.param_dict().items()}
+
+    def bodies():
+        """Each sweep's body at the starting K, over new accumulators."""
+        return {"importance": imp.counts_body(K, imp.count_accumulators(n, dev)),
+                "colours": stats.colours_body(p, model._degrees, 3)(
+                    K, stats.colour_accumulators(n, 3, dev))}
+
+    # (a) Each body at the starting K, eagerly, after one call that loads
+    # the kernels.
+    errors = {}
+    with torch.no_grad():
+        for kind, body in bodies().items():
+            body(model, cams[0])
+            errors[kind] = sync_error(lambda: body(model, cams[1]))
+    log(f"phase 16 (a): the sweep bodies under the sync debug mode at K={K}: "
+        + ", ".join(f"{k} {'no host sync' if e is None else 'synced: ' + e}"
+                    for k, e in errors.items()))
+    if any(e is not None for e in errors.values()):
+        raise AssertionError(f"phase 16 (a): a sweep body syncs: {errors}")
+
+    # (b) The graph sweeps against the eager exact loop.
+    launches = compare_sweeps(card, model, cams, "bench scene")
+
+    # (c) Times, the captures and the idle share.
+    cull_model = VariableSHGaussianModel(3, device=dev).load_numpy(params)
+    start_dc = cull_model._features_dc.detach().clone()
+    start_rest = cull_model._features_rest.detach().clone()
+
+    def reset_cull_model():
+        with torch.no_grad():
+            cull_model._features_dc.copy_(start_dc)
+            cull_model._features_rest.copy_(start_rest)
+        cull_model.init_degrees()
+
+    def replays(graph, vs):
+        for c in vs:
+            graph.replay(c)
+
+    times = {}
+    for nv, vs in views.items():
+        reps = REPEATS if nv == N_VIEWS else SWEEP_REPEATS
+        with torch.no_grad():
+            eager_ms = cuda_ms(lambda: imp.exact_counts(model, vs), warmup=1, repeats=reps)
+            graph_ms = cuda_ms(lambda: imp.prune_list(model, vs), warmup=1, repeats=reps)
+            # A graph of each body, captured on the first view, for the
+            # replays' time and the capture's.
+            graphs = {kind: sweep.SweepGraph(model, body, vs[0])
+                      for kind, body in bodies().items()}
+            replay_ms = cuda_ms(lambda: replays(graphs["importance"], vs), warmup=1,
+                                repeats=reps)
+        with eager_sweeps():
+            cull_eager_ms = cuda_ms(lambda: cull_sh_bands(cull_model, vs, CULL_CDIST, CULL_STD),
+                                    warmup=1, repeats=reps, setup=reset_cull_model)
+        cull_graph_ms = cuda_ms(lambda: cull_sh_bands(cull_model, vs, CULL_CDIST, CULL_STD),
+                                warmup=1, repeats=reps, setup=reset_cull_model)
+        times[nv] = dict(eager=eager_ms, graph=graph_ms, replay=replay_ms,
+                         cull_eager=cull_eager_ms, cull_graph=cull_graph_ms)
+        log(f"phase 16 (c) [{card}]: {nv} views of {HEIGHT}x{WIDTH} at N={n}, SH degree 3 "
+            f"(median of {reps}): importance sweep eager {eager_ms:.4f} ms "
+            f"({eager_ms / nv:.4f} a view), graph sweep {graph_ms:.4f} ms "
+            f"({graph_ms / nv:.4f} a view, an eager view and the capture included), a "
+            f"graph's replays alone {replay_ms:.4f} ms ({replay_ms / nv:.4f} a view); SH cull "
+            f"eager {cull_eager_ms:.4f} ms ({cull_eager_ms / (2 * nv):.4f} a view-pass), graph "
+            f"{cull_graph_ms:.4f} ms ({cull_graph_ms / (2 * nv):.4f} a view-pass, two captures "
+            f"included)")
+        log(f"phase 16 (c) [{card}]: {nv} views: capture "
+            + ", ".join(f"{kind} {g.capture_s * 1e3:.1f} ms and {g.pool_bytes / 2**20:.1f} MiB "
+                        f"of pool" for kind, g in graphs.items())
+            + f"; K {K} for at most {max(entries[nv])} entries a view (mean "
+            f"{statistics.mean(entries[nv]):.0f}; K / max {K / max(entries[nv]):.3f})")
+        if nv != SWEEP_VIEWS[-1]:
+            del graphs
+    v64 = views[SWEEP_VIEWS[-1]]
+    with torch.no_grad():
+        busy = {"importance sweep (a graph's replays alone)": device_busy(
+                    lambda: replays(graphs["importance"], v64), calls=1)}
+        del graphs
+        busy["importance sweep (graph, capture included)"] = device_busy(
+            lambda: imp.prune_list(model, v64), calls=1)
+    busy["SH cull (graphs)"] = device_busy(
+        lambda: (reset_cull_model(), cull_sh_bands(cull_model, v64, CULL_CDIST, CULL_STD)),
+        calls=1)
+    with torch.no_grad():
+        busy["importance sweep (eager loop)"] = device_busy(
+            lambda: imp.exact_counts(model, v64), calls=1)
+    for what, (n_launch, busy_ms, wall_ms, top, _) in busy.items():
+        if busy_ms > 0:
+            log(f"phase 16 (c) [{card}]: under torch.profiler, one {what} over {len(v64)} "
+                f"views: {n_launch:.0f} device kernels and copies, device busy {busy_ms:.4f} "
+                f"ms of {wall_ms:.4f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}); top: "
+                + "; ".join(f"{k} x{c} {ms:.4f} ms" for k, c, ms in top))
+        else:
+            log(f"phase 16 (c): the {what}'s device busy share not measured (the profiler "
+                "saw no device time)")
+    del cull_model, start_dc, start_rest
+
+    # (d) A forced overflow, through an engine whose buffer is too small.
+    engine = BaseTrainer(model)
+    start = max(entries[N_VIEWS]) // SWEEP_OVERFLOW_DIVISOR
+    engine.set_key_buffer(cams[0], start)
+    regrown, ovf_launches = counted(
+        {"composite_fwd_stats": composite.composite_fwd_stats},
+        lambda: imp.prune_list(model, cams, engine=engine))
+    passes = ovf_launches["composite_fwd_stats"] / len(cams)
+    exact = imp.exact_counts(model, cams)
+    k_after = engine.held_key_buffer(cams[0])
+    score_rel = [float((g - e).abs().max() / e.abs().max()) for g, e in zip(regrown[1:], exact[1:])]
+    log(f"phase 16 (d) [{card}]: from K={start} ({max(entries[N_VIEWS])} entries in the largest "
+        f"view): {passes:g} passes (statistics compositor launches "
+        f"{ovf_launches['composite_fwd_stats']} over {len(cams)} views), K regrown to {k_after} "
+        f"and written back to the engine; counts equal the exact sweep's "
+        f"{bool(torch.equal(regrown[0], exact[0]))}, scores {score_rel}")
+    if not (passes >= 2 and passes == int(passes) and k_after >= max(entries[N_VIEWS])
+            and torch.equal(regrown[0], exact[0]) and all(r <= TOL_STATS_REL for r in score_rel)):
+        raise AssertionError("phase 16 (d): the forced overflow did not regrow to the exact "
+                             "sweep's sums")
+    del engine
+
+    # (e) The statistics compositor's launches on the training paths.
+    log(f"phase 16 (e): statistics compositor launches on the training paths (launched, "
+        f"schedule's): {b2_runs}")
+    wrong = {k: v for k, v in b2_runs.items() if v[0] != v[1]}
+    if wrong:
+        raise AssertionError(f"phase 16 (e): launches off their schedule: {wrong}")
+    log(f"phase 16 [{card}]: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3574,6 +3905,7 @@ def run(tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     red_launches = {name: fn.launches for name, fn in wrappers.items()}
+    red_b2 = red_launches["composite_fwd_stats"]
     red_values = torch.stack(red_losses).cpu().tolist()
     for ev in events:
         log(f"phase 7: after step {ev['step']}: N {ev['n_before']} -> {ev['n_after']}, "
@@ -3660,15 +3992,24 @@ def run(tmp):
 
     # ---------------------------------------------------------------- phase 14
     t0 = time.perf_counter()
-    convergence_launches = convergence_phase(card, wrappers, tmp)
+    convergence_launches, convergence_b2 = convergence_phase(card, wrappers, tmp)
     torch.cuda.empty_cache()
     log(f"phase 14 [{card}]: {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- phase 15
     window_launches = window_phase(card, params_p, src, wrappers, tmp, dense_config)
     torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 16
+    flagship_b2 = N_VIEWS * (len(F_IMPORTANCE) + 2 * len(F_CULL))
+    b2_runs = {"7": (red_b2, N_VIEWS * (len(PRUNE_STEPS) + 2 * len(CULL_STEPS))),
+               "9": (flagship_launches["composite_fwd_stats"], flagship_b2),
+               "14": (convergence_launches["composite_fwd_stats"], convergence_b2),
+               "15": (window_launches["composite_fwd_stats"], flagship_b2)}
+    sweep_launches = sweep_phase(card, params, b2_runs)
+    torch.cuda.empty_cache()
     launches_by_phase = {name: {"11": camera_launches[name], "14": convergence_launches[name],
-                                "15": window_launches[name]}
+                                "15": window_launches[name], "16": sweep_launches[name]}
                          for name in wrappers}
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,11 @@
 """Camera record and constructors (counterpart of
-reduced_3dgs_tpu/dataset/camera.py:20-128).
+reduced_3dgs_tpu/dataset/camera.py:20-150).
 
 Matrices are stored in the row-vector convention of ops/projection.py. A
 camera also keeps its projection matrix (``full_proj = world_view @
 projection_matrix``), which the camera trainer applies to a learned pose.
+``sweep_cameras`` builds an event sweep's camera list once per event, and
+``stackable`` says whether one fixed-shape sweep body serves all of them.
 """
 from __future__ import annotations
 
@@ -69,6 +71,38 @@ def build_camera(image_height: int, image_width: int, FoVx: float, FoVy: float,
         ground_truth_depth=as_tensor(ground_truth_depth, device),
         projection_matrix=projm,
     )
+
+
+def resized_camera(camera: Camera, resize: Optional[int], device) -> Camera:
+    """``camera`` at its aspect ratio with ``resize`` pixels along its
+    longer side, without images (itself when ``resize`` is None)."""
+    if resize is None:
+        return camera
+    height, width = camera.image_height, camera.image_width
+    scale = resize / max(height, width)
+    return build_camera(int(height * scale), int(width * scale), camera.FoVx, camera.FoVy,
+                        R=camera.R, T=camera.T, device=device)
+
+
+def sweep_cameras(cameras, resize: Optional[int] = None, device=None) -> list:
+    """An event sweep's cameras, built once per event: each without its
+    ground truth (a sweep reads none), and resized once with
+    ``resized_camera`` when ``resize`` is given."""
+    return [dataclasses.replace(resized_camera(c, resize, device or c.R.device),
+                                ground_truth_image=None, ground_truth_image_mask=None,
+                                ground_truth_depth=None)
+            for c in cameras]
+
+
+def stackable(cameras) -> bool:
+    """True when the cameras share one image size, so that one fixed-shape
+    sweep body serves them all (JAX dataset/camera.py:143-150); a single
+    camera is stackable, none is not."""
+    cams = list(cameras)
+    if len(cams) < 2:
+        return len(cams) == 1
+    h, w = cams[0].image_height, cams[0].image_width
+    return all(c.image_height == h and c.image_width == w for c in cams)
 
 
 def fov2focal(fov: float, pixels: int) -> float:

@@ -9,10 +9,28 @@ lowest are pruned. All scoring policies and defaults are the JAX
 package's (and the reference's): important_score, v_important_score,
 max_v_important_score, count, T_alpha, T_alpha_avg and comprehensive.
 
-When the trainer's engine has a device mesh (``parallel.ShardedTrainer``),
-the sweep runs over it (``parallel.stats.sharded_prune_list``). Not ported:
-``_sweep_counts``, the JAX package's one-program scan over the stacked
-cameras with key-buffer regrowth: the port renders camera by camera.
+The sweep (``prune_list``) takes three forms:
+
+  * more than one view of one image size and FoV, for the 3DGS family
+    (``ops.rasterize.sweep.sweeps_statically``): ``sweep_counts``, the
+    counterpart of JAX's ``_sweep_counts`` (importance/trainer.py:88-140).
+    Every view renders through the static key buffer with no host sync; on
+    the card the per-view body is a CUDA graph replayed once per view
+    (``ops.rasterize.sweep.static_sweep``). The overflow flags are ORed on
+    the device and read once per pass; after an overflow K doubles, up to
+    N x tiles, and the pass runs again. K starts from the training engine's
+    buffer for the image size when the pruner passes its engine, and a
+    regrown K is written back there, where the step reads it (JAX's model
+    and sweep share ``_key_buffer_size``); otherwise from
+    ``default_key_buffer_size`` of N's capacity tier;
+  * other views: ``exact_counts``, one eager render per view at its exact
+    entry count (JAX's loop, :73-85, which JAX takes only for views of
+    mixed sizes), and so for the 2DGS family at any views
+    (``static_sweeps`` False: its plain compositor pays for every slot of a
+    static buffer);
+  * on a device mesh (``parallel.ShardedTrainer``): per batch over the mesh
+    (``parallel.stats.sharded_prune_list``), as JAX's per-batch programs
+    are; gloo collectives cannot be captured.
 """
 from __future__ import annotations
 
@@ -21,7 +39,9 @@ from typing import Callable, Optional
 
 import torch
 
-from ..dataset.camera import Camera, build_camera
+from ..dataset import camera as camera_mod
+from ..dataset.camera import Camera
+from ..ops.rasterize.sweep import static_sweep, sweeps_statically
 from ..trainer import (AbstractDensifier, DensificationTrainer, DensifierWrapper,
                        NoopDensifier)
 
@@ -39,36 +59,65 @@ def count_render(model, camera: Camera) -> dict:
     }
 
 
-def resized_camera(camera: Camera, resize: Optional[int], device) -> Camera:
-    """``camera`` at its aspect ratio with ``resize`` pixels along its
-    longer side (itself when ``resize`` is None)."""
-    if resize is None:
-        return camera
-    height, width = camera.image_height, camera.image_width
-    scale = resize / max(height, width)
-    return build_camera(int(height * scale), int(width * scale), camera.FoVx, camera.FoVy,
-                        R=camera.R, T=camera.T, device=device)
+def count_accumulators(n: int, device) -> dict:
+    """The sweep's zeroed sums: count int32, opacity and T_alpha scores."""
+    return {"count": torch.zeros((n,), dtype=torch.int32, device=device),
+            "opacity": torch.zeros((n,), dtype=torch.float32, device=device),
+            "t_alpha": torch.zeros((n,), dtype=torch.float32, device=device)}
 
 
-def prune_list(model, dataset, resize: Optional[int] = None, mesh=None):
+def _add_counts(acc: dict, out: dict):
+    acc["count"] += out["gaussians_count"]
+    acc["opacity"] += out["opacity_important_score"]
+    acc["t_alpha"] += out["T_alpha_important_score"]
+
+
+def counts_body(key_buffer_size: int, acc: dict):
+    """The sweep's per-view body: ``body(model, camera)`` renders with
+    statistics through a static buffer of ``key_buffer_size`` entries, adds
+    into ``acc`` in place and returns the 0-d overflow flag."""
+    def body(model, camera):
+        out = model.render(camera, with_stats=True, key_buffer_size=key_buffer_size)
+        _add_counts(acc, out)
+        return out["overflow"]
+    return body
+
+
+def sweep_counts(model, cameras, key_buffer=None, on_regrow=None):
+    """(count, opacity score, T_alpha score) summed over ``cameras``
+    (``sweeps_statically``) through the static key buffer, starting at
+    ``key_buffer`` and regrown on overflow (``static_sweep``)."""
+    acc = static_sweep(model, cameras, counts_body,
+                       lambda: count_accumulators(model.num_points, model._xyz.device),
+                       key_buffer, on_regrow)
+    return acc["count"], acc["opacity"], acc["t_alpha"]
+
+
+@torch.no_grad()
+def exact_counts(model, cameras):
+    """The same sums from one eager render per camera at its exact entry
+    count."""
+    acc = count_accumulators(model.num_points, model._xyz.device)
+    for camera in cameras:
+        _add_counts(acc, count_render(model, camera))
+    return acc["count"], acc["opacity"], acc["t_alpha"]
+
+
+def prune_list(model, dataset, resize: Optional[int] = None, mesh=None, *, engine=None):
     """(count int32, opacity score, T_alpha score), each [N], summed over
     every camera of ``dataset``. With ``resize``, each camera is rendered at
     its aspect ratio with ``resize`` pixels along its longer side. With
-    ``mesh`` (a ``parallel.Mesh``), the sweep runs sharded over it."""
+    ``mesh`` (a ``parallel.Mesh``), the sweep runs sharded over it.
+    ``engine``, the training engine, sizes the key buffer of a static sweep
+    and takes its regrowth."""
     if mesh is not None:
         from ..parallel.stats import sharded_prune_list
         return sharded_prune_list(model, dataset, mesh, resize)
-    n = model.num_points
-    device = model._xyz.device
-    gaussian_count = torch.zeros((n,), dtype=torch.int32, device=device)
-    opacity_score = torch.zeros((n,), dtype=torch.float32, device=device)
-    t_alpha_score = torch.zeros((n,), dtype=torch.float32, device=device)
-    for camera in dataset:
-        out = count_render(model, resized_camera(camera, resize, device))
-        gaussian_count += out["gaussians_count"]
-        opacity_score += out["opacity_important_score"]
-        t_alpha_score += out["T_alpha_important_score"]
-    return gaussian_count, opacity_score, t_alpha_score
+    cams = camera_mod.sweep_cameras(dataset, resize, model._xyz.device)
+    if sweeps_statically(model, cams):
+        return sweep_counts(model, cams, **({} if engine is None
+                                            else engine.sweep_buffer(cams[0])))
+    return exact_counts(model, cams)
 
 
 def calculate_v_imp_score(gaussians, imp_list: torch.Tensor, v_pow: float) -> torch.Tensor:
@@ -97,12 +146,13 @@ def prune_gaussians(gaussians, dataset, resize: Optional[int] = None,
                     prune_thr_important_score=None, prune_thr_v_important_score=None,
                     prune_thr_max_v_important_score=None, prune_thr_count=None,
                     prune_thr_T_alpha=None, prune_thr_T_alpha_avg=None,
-                    v_pow: float = 0.1, mesh=None) -> torch.Tensor:
+                    v_pow: float = 0.1, mesh=None, engine=None) -> torch.Tensor:
     """The [N] bool removal mask of importance type ``prune_type``; raises
     ValueError for an unknown type. ``comprehensive`` ORs the masks of every
-    type whose threshold is given. ``mesh`` shards the sweep."""
+    type whose threshold is given. ``mesh`` shards the sweep; ``engine``
+    sizes a static sweep's key buffer (``prune_list``)."""
     gaussian_list, opacity_imp_list, t_alpha_imp_list = (
-        prune_list(gaussians, dataset, resize) if mesh is None
+        prune_list(gaussians, dataset, resize, engine=engine) if mesh is None
         else prune_list(gaussians, dataset, resize, mesh=mesh))
     glist = gaussian_list.to(torch.float32)
 
@@ -183,13 +233,15 @@ class ImportancePruner(DensifierWrapper):
     def densify_and_prune(self, loss, out, camera, step: int):
         ret = super().densify_and_prune(loss, out, camera, step)
         if self.fires(step):
-            # A sharded engine sweeps over its own mesh.
+            # A sharded engine sweeps over its own mesh; the engine's key
+            # buffer sizes a static sweep.
+            engine = self.trainer.engine
             remove_mask = prune_gaussians(
                 self.trainer.model, self.dataset, self.resize, self.prune_type,
                 self.prune_percent, self.prune_thr_important_score,
                 self.prune_thr_v_important_score, self.prune_thr_max_v_important_score,
                 self.prune_thr_count, self.prune_thr_T_alpha, self.prune_thr_T_alpha_avg,
-                self.v_pow, mesh=getattr(self.trainer.engine, "mesh", None))
+                self.v_pow, mesh=getattr(engine, "mesh", None), engine=engine)
             ret = ret.merge_remove(remove_mask)
         return ret
 

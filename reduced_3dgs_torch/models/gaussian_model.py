@@ -61,6 +61,10 @@ def camera_settings(camera: Camera, scale_modifier: float = 1.0,
 class GaussianModel(nn.Module):
     """Standard 3DGS model (max SH degree ``sh_degree``, default 3)."""
 
+    # The event sweeps render views of one size and FoV through a static key
+    # buffer, as one captured body on the card (``ops.rasterize.sweep``).
+    static_sweeps = True
+
     def __init__(self, sh_degree: int = 3, device="cuda"):
         super().__init__()
         self.max_sh_degree = int(sh_degree)

@@ -16,17 +16,19 @@ The pipeline is the CUDA rasterizer's:
   4. ``_assemble_outputs`` stitches the tiles into the image.
 
 Two binnings. Without a key buffer, ``bin_and_sort`` reads the total entry
-count with one host sync and emits exactly that many entries (the events,
-the render CLI and the viewer render so). With ``key_buffer_size`` K it
+count with one host sync and emits exactly that many entries (the render
+CLI, the viewer and the sweeps over views of mixed sizes render so). With
+``key_buffer_size`` K it
 emits into a [K] buffer without any host sync, as the JAX package does:
 entries past the total take the sentinel tile ``num_tiles`` (they sort to
 the tail and lie in no tile's range) and scratch Gaussian ids from N
 (``composite.TAIL_SCRATCH``); when
 the total exceeds K, the entries past K in emission order are dropped, and
-``overflow`` says so. The training step renders so, which lets it be
-captured as a CUDA graph (``trainer/base.py``); the trainer sizes K with
-``default_key_buffer_size`` and regrows or shrinks it from the overflow
-flags and entry counts it reads every 64 steps.
+``overflow`` says so. The training step and the event sweeps render so,
+which lets them be captured as CUDA graphs (``trainer/step_graph.py``); the
+trainer sizes K with ``default_key_buffer_size`` and regrows or shrinks it
+from the overflow flags and entry counts it reads every 64 steps, and a
+sweep doubles it after a pass that overflowed.
 
 The viewport (the multi-device trainer's pixel band, JAX tiled.py:387-414):
 with ``tile_rows`` given, only the band of ``tile_rows`` tile rows from the
@@ -63,6 +65,16 @@ def default_key_buffer_size(n: int, tiles_x: int, tiles_y: int) -> int:
     most ``max_key_buffer`` (JAX tiled.py:58-68 without its alignment
     term)."""
     return int(min(max(6 * n, 2048), max(n, 1) * tiles_x * tiles_y))
+
+
+def bucket_capacity(n: int, granularity: int = 256, headroom: float = 1.3) -> int:
+    """The JAX engine's capacity for n Gaussians (JAX functional.py:23-33):
+    1.3 n rounded up to the next sqrt(2)-spaced tier of multiples of 256."""
+    target = max(int(n * headroom), granularity)
+    cap = granularity
+    while cap < target:
+        cap = -(-int(cap * 1.4142135) // granularity) * granularity
+    return cap
 
 
 def fill_ids_from_offsets(offsets: torch.Tensor, counts: torch.Tensor, K: int) -> torch.Tensor:

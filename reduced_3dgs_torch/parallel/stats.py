@@ -3,7 +3,9 @@ SH-culling colour moments (counterpart of reduced_3dgs_tpu/parallel/stats.py).
 
 The single-device sweeps (``importance.trainer.prune_list``,
 ``ops.shculling_stats.calculate_colours_variance``) render every camera in
-turn. Here, as in the sharded train step:
+turn, on the card as one captured body replayed per view. Here, as in the
+sharded train step, and eagerly (gloo's collectives run on the host and
+cannot be captured; JAX too runs one program per batch):
 
   * the data ranks take different cameras of a batch of n_data same-size
     cameras; a short last batch is padded with its first camera at weight 0;
@@ -27,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from ..importance.trainer import resized_camera
+from ..dataset.camera import resized_camera
 from ..ops import sh as sh_ops
 from ..ops.shculling_stats import colours_by_degree
 from .sharding import Mesh, band_layout

@@ -93,6 +93,12 @@ class VariableSHGsplat2DGSGaussianModel(VariableSHGaussianModel):
     parameters and reduction features; the third scale is ignored by the
     renderer."""
 
+    # The event sweeps render camera by camera at the exact entry count: the
+    # surfel compositor is plain PyTorch and pays for every slot of a static
+    # buffer (the 2DGS step took 900.58-1023.08 ms under one against 366.89
+    # ms before; PERF.md §6).
+    static_sweeps = False
+
     def render(self, camera, mean2d_offset_ndc=None, *, params=None, degrees=None,
                with_stats: bool = False, tile_row_offset: int = 0, tile_rows=None,
                key_buffer_size=None) -> dict:

@@ -14,14 +14,22 @@ Gaussian are taken over all cameras, then
 
 The second pass of statistics renders the features and degrees the first
 pass produced, before they are written to the model. The culler writes the
-features in place and leaves Adam's moments as they are. When the trainer's
-engine has a device mesh (``parallel.ShardedTrainer``), both passes run over
-it (``parallel.stats.sharded_colours_variance``).
+features in place and leaves Adam's moments as they are. For cameras of one
+image size and FoV both passes are static sweeps
+(``calculate_colours_variance``): on the card each is a CUDA graph captured
+for the pass and replayed per view, and the second pass captures a graph of
+its own, since its features and degrees are other tensors than the first
+pass's (two captures a cull, each after one eager view). The culler passes
+its engine's key buffer to both sweeps and takes back a regrown one
+(``BaseTrainer.sweep_buffer``).
+When the trainer's engine has a device mesh (``parallel.ShardedTrainer``),
+both passes run over it per batch (``parallel.stats.sharded_colours_variance``).
 """
 from __future__ import annotations
 
 import torch
 
+from ..dataset.camera import sweep_cameras
 from ..ops.sh import SH_C0
 from ..ops.shculling_stats import calculate_colours_variance
 from ..trainer import AbstractTrainer, BaseTrainer, Trainer, TrainerWrapper
@@ -59,18 +67,26 @@ def _low_distance_colour_culling(degrees, features_rest, threshold, colour_dista
 
 @torch.no_grad()
 def cull_sh_bands(model: VariableSHGaussianModel, cameras, threshold: float = 0,
-                  std_threshold: float = 0.0, mesh=None):
+                  std_threshold: float = 0.0, mesh=None, engine=None):
     """Cull the SH bands of ``model`` from statistics over ``cameras``: sets
     its degrees and rewrites its DC and rest features in place. With
-    ``mesh`` (a ``parallel.Mesh``), the statistics are swept over it."""
+    ``mesh`` (a ``parallel.Mesh``), the statistics are swept over it;
+    ``engine``, the training engine, sizes a static sweep's key buffer and
+    takes back a regrown one."""
     params = {k: p.detach() for k, p in model.param_dict().items()}
     degrees = model.aux_state()["degrees"]
-    stats_fn = calculate_colours_variance
     if mesh is not None:
         from ..parallel.stats import sharded_colours_variance
 
         def stats_fn(*args):
             return sharded_colours_variance(*args, mesh=mesh)
+    else:
+        cameras = sweep_cameras(cameras)
+
+        def stats_fn(*args):
+            # Read before each pass: the first may have regrown the buffer.
+            buffer = {} if engine is None or not cameras else engine.sweep_buffer(cameras[0])
+            return calculate_colours_variance(*args, **buffer)
 
     _, weighted_variance, weighted_mean = stats_fn(
         cameras, model, params, degrees, model.active_sh_degree)
@@ -116,7 +132,7 @@ class SHCuller(TrainerWrapper):
         ret = super().optim_step()
         if self.fires(self.curr_step):
             cull_sh_bands(self.model, self.dataset, self.cdist_threshold, self.std_threshold,
-                          mesh=getattr(self.engine, "mesh", None))
+                          mesh=getattr(self.engine, "mesh", None), engine=self.engine)
         return ret
 
 

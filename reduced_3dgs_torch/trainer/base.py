@@ -45,7 +45,7 @@ from typing import Optional
 
 import torch
 
-from ..ops.rasterize.tiled import default_key_buffer_size, max_key_buffer
+from ..ops.rasterize.tiled import bucket_capacity, default_key_buffer_size, max_key_buffer
 from ..ops.ssim import ssim
 from ..utils.math import l1_loss
 from ..utils.schedule import get_expon_lr_func
@@ -58,16 +58,6 @@ from .step_graph import StepGraph
 # (the JAX engine's default key_buffer_factor).
 KEY_BUFFER_DRAIN = 64
 KEY_BUFFER_FACTOR = 6
-
-
-def bucket_capacity(n: int, granularity: int = 256, headroom: float = 1.3) -> int:
-    """The JAX engine's capacity for n Gaussians (JAX functional.py:23-33):
-    1.3 n rounded up to the next sqrt(2)-spaced tier of multiples of 256."""
-    target = max(int(n * headroom), granularity)
-    cap = granularity
-    while cap < target:
-        cap = -(-int(cap * 1.4142135) // granularity) * granularity
-    return cap
 
 
 def _tiles(camera):
@@ -238,6 +228,27 @@ class BaseTrainer(AbstractTrainer):
             self._key_buffer_size[hw] = max(default_key_buffer_size(n, tiles_x, tiles_y),
                                             KEY_BUFFER_FACTOR * n)
         return min(self._key_buffer_size[hw], max_key_buffer(n, tiles_x, tiles_y))
+
+    def held_key_buffer(self, camera) -> Optional[int]:
+        """``key_buffer_for(camera)`` when the engine holds a buffer for its
+        image size (it has stepped or swept at it), else None."""
+        if (camera.image_height, camera.image_width) not in self._key_buffer_size:
+            return None
+        return self.key_buffer_for(camera)
+
+    def set_key_buffer(self, camera, size: int):
+        """The buffer of ``camera``'s image size becomes ``size``: an event
+        sweep that regrew it writes it back, as the JAX package's step and
+        sweeps share ``model._key_buffer_size``."""
+        self._key_buffer_size[(camera.image_height, camera.image_width)] = int(size)
+
+    def sweep_buffer(self, camera) -> dict:
+        """The key buffer arguments of a static event sweep at ``camera``'s
+        image size (``ops.rasterize.sweep.static_sweep``): the buffer held
+        for it, and ``on_regrow``, which writes a regrown one back with
+        ``set_key_buffer``."""
+        return {"key_buffer": self.held_key_buffer(camera),
+                "on_regrow": lambda size: self.set_key_buffer(camera, size)}
 
     def grow_key_buffer(self, camera):
         """Twice the buffer, up to ``max_key_buffer``."""

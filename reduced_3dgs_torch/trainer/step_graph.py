@@ -15,16 +15,18 @@ record (``BaseTrainer.window_step``). Everything else the step touches is
 the engine's state, read and written in place at the addresses the key
 (``BaseTrainer.graph_key``) holds.
 
-A capture that fails raises: there is no eager fallback.
+A capture that fails raises: there is no eager fallback. The capture
+recipe (``capture_graph``) is the event sweeps' too
+(``ops.rasterize.sweep``).
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import torch
 
 from ..ops.rasterize import composite
+from ..ops.rasterize.sweep import capture_graph
 
 # The camera fields a step reads that hold tensors.
 INPUT_FIELDS = ("world_view_transform", "full_proj_transform", "camera_center", "bg_color",
@@ -34,8 +36,7 @@ INPUT_FIELDS = ("world_view_transform", "full_proj_transform", "camera_center", 
 class StepGraph:
     """One captured step and its fixed inputs and output. ``capture_s`` is
     the capture's wall time (the warm-up step excluded) and ``pool_bytes``
-    what the card's reserved memory grew by during the capture, from a
-    cache emptied first: the graph's private pool."""
+    the size of the graph's private memory pool."""
 
     def __init__(self, key, graph, camera, record, first_record, tally, capture_s,
                  pool_bytes):
@@ -59,26 +60,10 @@ class StepGraph:
         params = engine.model.param_dict().values()
         for p in params:
             p.grad = None
-        main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            first_record = engine.window_step(outer, static)
-        main.wait_stream(side)
-        first_record.record_stream(main)
-        before = dict(composite.captured_launches)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            record = engine.window_step(outer, static, keep_grads=True)
-        torch.cuda.synchronize(device)
-        capture_s = time.perf_counter() - t0
-        tally = {name: composite.captured_launches[name] - n for name, n in before.items()}
-        return cls(key, graph, static, record, first_record, tally, capture_s,
-                   torch.cuda.memory_reserved(device) - reserved)
+        graph, first_record, record, tally, capture_s, pool_bytes = capture_graph(
+            lambda: engine.window_step(outer, static),
+            lambda: engine.window_step(outer, static, keep_grads=True), device)
+        return cls(key, graph, static, record, first_record, tally, capture_s, pool_bytes)
 
     def replay(self, camera) -> torch.Tensor:
         """One step on ``camera``: its record [3 or 4] float64, a copy."""
@@ -89,3 +74,4 @@ class StepGraph:
         self.graph.replay()
         composite.add_replayed_launches(self.tally)
         return self.record.clone()
+

@@ -313,13 +313,13 @@ def torch_half(ttr, tm, tds, capacity, drive):
             mask=t_mercy_fn(model, dataset, *args, **kwargs))
         return rec["mercy"][ttr.curr_step]["mask"]
 
-    def t_record_prune_list(model, dataset, resize=None):
-        lists = t_prune_list(model, dataset, resize)
+    def t_record_prune_list(model, dataset, resize=None, **kwargs):
+        lists = t_prune_list(model, dataset, resize, **kwargs)
         rec["importance"].append((lists, model.get_scaling.detach().clone()))
         return lists
 
-    def t_record_colours(*args):
-        stats = t_colours(*args)
+    def t_record_colours(*args, **kwargs):
+        stats = t_colours(*args, **kwargs)
         rec["cull"].append(stats)
         return stats
 

@@ -75,13 +75,13 @@ def runs(tmp_path_factory):
     recorded = {"prune": [], "cull": [], "n": [], "degrees": {}}
     prune_list, colours_variance = timp.prune_list, tsh.calculate_colours_variance
 
-    def record_prune_list(model, dataset, resize=None):
-        lists = prune_list(model, dataset, resize)
+    def record_prune_list(model, dataset, resize=None, **kwargs):
+        lists = prune_list(model, dataset, resize, **kwargs)
         recorded["prune"].append((ttr.curr_step, lists, model.get_scaling.detach().clone()))
         return lists
 
-    def record_colours(*args):
-        stats = colours_variance(*args)
+    def record_colours(*args, **kwargs):
+        stats = colours_variance(*args, **kwargs)
         recorded["cull"].append(stats)
         return stats
 
