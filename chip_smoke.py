@@ -384,6 +384,12 @@ def log(msg):
     print(msg, flush=True)
 
 
+def pool_mib(nbytes):
+    """A graph's pool as printed: ``capture_graph`` sizes it only while a
+    profiler records, and leaves None otherwise."""
+    return "an unsized" if nbytes is None else f"{nbytes / 2**20:.1f} MiB of"
+
+
 def bench_scene(seed=0):
     """Raw parameters of the bench scene (bench.py's distribution) from numpy."""
     n = N_GAUSSIANS
@@ -459,7 +465,8 @@ def device_busy(fn, calls=5):
     """Profile `calls` calls of fn(): (device kernels and copies per call,
     device busy ms per call, wall ms per call, top kernels by device time,
     device ms per call of each kernel name). Busy is the sum of device
-    kernel and copy times on the one stream."""
+    kernel and copy times on the one stream; the shadows of the program's
+    ``r3dgs.*`` regions on the device's timeline are no device work."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -470,7 +477,8 @@ def device_busy(fn, calls=5):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [a for a in prof.key_averages()
-           if a.device_type == torch.autograd.DeviceType.CUDA]
+           if a.device_type == torch.autograd.DeviceType.CUDA
+           and not a.key.startswith("r3dgs.")]
     busy_us = sum(a.self_device_time_total for a in dev)
     top = sorted(dev, key=lambda a: -a.self_device_time_total)[:6]
     by_name = {a.key: a.self_device_time_total / 1e3 / calls for a in dev}
@@ -2969,6 +2977,7 @@ def window_phase(card, params_p, src, wrappers, tmp, dense_config):
     from reduced_3dgs_torch.combinations import (
         SHCullingOpacityResetFullReducedDensificationTrainer)
     from reduced_3dgs_torch.dataset.dataset import prepare_dataset
+    from reduced_3dgs_torch.ops.rasterize.sweep import pool_size
     from reduced_3dgs_torch.shculling import (VariableSHGaussianModel,
                                               VariableSHGsplat2DGSGaussianModel)
     from reduced_3dgs_torch.train import training
@@ -3003,9 +3012,13 @@ def window_phase(card, params_p, src, wrappers, tmp, dense_config):
         ls = torch.stack([single.step(c)[0] for c in cams[:3]]).cpu().double()
         graph = windowed._graph
         loss_rel = float(((lw - ls).abs() / ls.abs()).max())
+        t_walk = time.perf_counter()
+        pool = pool_size(graph.graph)
+        walk_ms = (time.perf_counter() - t_walk) * 1e3
         log(f"phase 15 (a) [{card}]: {cls.__name__}: a window of 3 steps, captured in "
-            f"{graph.capture_s * 1e3:.1f} ms with {graph.pool_bytes / 2**20:.1f} MiB of pool, "
-            f"against 3 single steps: losses max relative difference {loss_rel:.3e}")
+            f"{graph.capture_s * 1e3:.1f} ms with {pool_mib(pool)} pool (the snapshot walk "
+            f"that sizes it {walk_ms:.2f} ms, made only under a profiler), against 3 single "
+            f"steps: losses max relative difference {loss_rel:.3e}")
         if not loss_rel <= TOL_CKPT_LOSS_REL:
             raise AssertionError(f"phase 15 (a): {cls.__name__}'s window's losses differ by "
                                  f"{loss_rel:.3e}")
@@ -3109,7 +3122,7 @@ def window_phase(card, params_p, src, wrappers, tmp, dense_config):
         f"{statistics.median(timed) / WINDOW:.4f} ms a step; Trainer.step {step_ms:.4f} ms")
     log(f"phase 15 (c) [{card}]: {len(captures)} captures in {trainer.curr_step} steps, in "
         f"windows {[i + 1 for i in fresh]}: capture "
-        + ", ".join(f"{g.capture_s * 1e3:.1f} ms and {g.pool_bytes / 2**20:.1f} MiB of pool"
+        + ", ".join(f"{g.capture_s * 1e3:.1f} ms and {pool_mib(g.pool_bytes)} pool"
                     for g in captures)
         + f"; after two drains K {key_buffer} for {rendered} entries "
         f"({key_buffer / rendered:.3f}x)")
@@ -3421,8 +3434,8 @@ def sweep_phase(card, params, b2_runs):
             f"{cull_graph_ms:.4f} ms ({cull_graph_ms / (2 * nv):.4f} a view-pass, two captures "
             f"included)")
         log(f"phase 16 (c) [{card}]: {nv} views: capture "
-            + ", ".join(f"{kind} {g.capture_s * 1e3:.1f} ms and {g.pool_bytes / 2**20:.1f} MiB "
-                        f"of pool" for kind, g in graphs.items())
+            + ", ".join(f"{kind} {g.capture_s * 1e3:.1f} ms and {pool_mib(g.pool_bytes)} pool"
+                        for kind, g in graphs.items())
             + f"; K {K} for at most {max(entries[nv])} entries a view (mean "
             f"{statistics.mean(entries[nv]):.0f}; K / max {K / max(entries[nv]):.3f})")
         if nv != SWEEP_VIEWS[-1]:

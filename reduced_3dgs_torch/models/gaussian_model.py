@@ -30,6 +30,7 @@ from torch import nn
 from ..dataset.camera import Camera
 from ..ops.rasterize.common import RenderSettings, mark_visible
 from ..ops.rasterize.tiled import render_tiled
+from ..utils import profiling
 from ..utils.device import resolve_device
 from . import ply as plyio
 
@@ -200,8 +201,9 @@ class GaussianModel(nn.Module):
         bins into a static buffer of that many entries, with no host sync;
         the output then holds "overflow" and "num_rendered" as tensors, as
         the JAX model's does."""
-        return render_tiled(*self.render_array_args(params, degrees),
-                            self.render_settings(camera),
+        with profiling.span("preprocess"):
+            arrays = self.render_array_args(params, degrees)
+        return render_tiled(*arrays, self.render_settings(camera),
                             mean2d_offset_ndc=mean2d_offset_ndc, with_stats=with_stats,
                             tile_row_offset=tile_row_offset, tile_rows=tile_rows,
                             key_buffer_size=key_buffer_size)

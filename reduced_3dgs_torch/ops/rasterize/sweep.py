@@ -45,6 +45,7 @@ import time
 import torch
 
 from ...dataset import camera as camera_mod
+from ...utils import profiling
 from . import composite
 from .tiled import bucket_capacity, default_key_buffer_size, max_key_buffer
 
@@ -59,27 +60,37 @@ def capture_graph(eager, captured, device):
     compositor launches the capture records. Returns (graph, eager()'s
     result, captured()'s result, the launch tally, the capture's wall
     seconds, the bytes of the card's memory the graph's pool holds after
-    it)."""
-    main = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        first = eager()
-    main.wait_stream(side)
-    if torch.is_tensor(first):
-        first.record_stream(main)
-    before = dict(composite.captured_launches)
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = captured()
-    torch.cuda.synchronize(device)
-    capture_s = time.perf_counter() - t0
+    it). The pool's size walks the allocator's whole snapshot, so it is
+    taken only while a profiler records, and is None otherwise."""
+    with profiling.span("capture"):
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            first = eager()
+        main.wait_stream(side)
+        if torch.is_tensor(first):
+            first.record_stream(main)
+        before = dict(composite.captured_launches)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = captured()
+        torch.cuda.synchronize(device)
+        capture_s = time.perf_counter() - t0
+    profiling.count("graph.captures")
+    profiling.count("graph.capture_ms", capture_s * 1e3)
     tally = {name: composite.captured_launches[name] - n for name, n in before.items()}
-    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                     if tuple(seg["segment_pool_id"]) == tuple(graph.pool()))
+    pool_bytes = pool_size(graph) if profiling.recording() else None
     return graph, first, out, tally, capture_s, pool_bytes
+
+
+def pool_size(graph) -> int:
+    """The bytes of the card's memory that ``graph``'s private pool holds,
+    from a walk of the allocator's snapshot."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(graph.pool()))
 
 
 def _fov(camera) -> tuple:
@@ -110,7 +121,8 @@ class SweepGraph:
     then captured. ``replay(camera)`` adds another view of the same image
     size and FoV. ``overflow`` is the OR of the views' flags so far;
     ``capture_s`` the capture's wall seconds (the eager view excluded) and
-    ``pool_bytes`` the size of the graph's memory pool."""
+    ``pool_bytes`` the size of the graph's memory pool (None unless a
+    profiler recorded the capture)."""
 
     def __init__(self, model, body, camera):
         self.overflow = torch.zeros((), dtype=torch.bool, device=model._xyz.device)
@@ -138,7 +150,8 @@ def _graph_pass(model, cameras, body) -> bool:
     graph = SweepGraph(model, body, cameras[0])
     for camera in cameras[1:]:
         graph.replay(camera)
-    return bool(graph.overflow)
+    with profiling.sync("sweep_overflow"):
+        return bool(graph.overflow)
 
 
 @torch.no_grad()
@@ -156,18 +169,23 @@ def static_sweep(model, cameras, make_body, make_accumulators, key_buffer=None,
     n = model.num_points
     K = key_buffer or start_key_buffer(n, cam0)
     while True:
-        acc = make_accumulators()
-        body = make_body(K, acc)
-        if model._xyz.device.type == "cuda":
-            overflow = _graph_pass(model, cameras, body)
-        else:
-            flag = torch.zeros((), dtype=torch.bool)
-            for camera in cameras:
-                flag |= body(model, camera)
-            overflow = bool(flag)
+        profiling.count("sweep.passes")
+        with profiling.span("sweep_pass", views=len(cameras), K=K):
+            acc = make_accumulators()
+            body = make_body(K, acc)
+            if model._xyz.device.type == "cuda":
+                overflow = _graph_pass(model, cameras, body)
+            else:
+                flag = torch.zeros((), dtype=torch.bool)
+                for camera in cameras:
+                    flag |= body(model, camera)
+                with profiling.sync("sweep_overflow"):
+                    overflow = bool(flag)
         if not overflow:
             return acc
+        profiling.count("sweep.regrows")
         K = min(2 * K, max_key_buffer(n, -(-cam0.image_width // 16),
                                       -(-cam0.image_height // 16)))
         if on_regrow is not None:
+            profiling.count("key_buffer.regrows")
             on_regrow(K)

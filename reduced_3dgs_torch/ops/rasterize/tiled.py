@@ -48,6 +48,7 @@ from typing import Optional
 import torch
 
 from ... import config
+from ...utils import profiling
 from . import common
 from .common import RenderSettings
 from .composite import (TAIL_SCRATCH, CompositeSorted, composite_fwd_stats,
@@ -137,7 +138,8 @@ def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
     counts = torch.where(tiles_touched > 0, rect_w * band_h, torch.zeros_like(rect_w))
     offsets = torch.cumsum(counts, 0) - counts
     if key_buffer_size is None:
-        total = int(counts.sum())                    # the one host sync
+        with profiling.sync("entry_count"):
+            total = int(counts.sum())                # the one host sync
         K = total
         gidx = torch.repeat_interleave(torch.arange(n, device=device), counts,
                                        output_size=total)
@@ -204,25 +206,29 @@ def render_tiled(means3d, opacities_raw, scales, rotations, shs,
     "T_alpha_important_score" (sum of alpha T) and "transmittance_sum"
     (sum of the incoming T)."""
     tiles_x, tiles_y, H, W = viewport(settings, tile_row_offset, tile_rows)
-    with torch.no_grad() if with_stats else contextlib.nullcontext():
-        pre = common.preprocess(means3d, opacities_raw, scales, rotations, shs, settings,
-                                mean2d_offset_ndc=mean2d_offset_ndc,
-                                colors_precomp=colors_precomp)
-        ent = bin_and_sort(pre.rect_min, pre.rect_max, pre.tiles_touched, pre.depths,
-                           tiles_x, tiles_y, tile_row_offset, key_buffer_size)
-        if not with_stats:
-            color4, final_t = CompositeSorted.apply(
-                pack_fields(pre), ent["s_gidx"], ent["range_start"], ent["range_end"], tiles_x,
-                tile_row_offset)
-            return _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y,
-                                     H, W, ent["num_rendered"], ent.get("overflow"))
-        e = gather_entries(pack_fields(pre), ent["s_gidx"])
-        color4, final_t, _, stats = composite_fwd_stats(e, ent["range_start"],
-                                                        ent["range_end"], tiles_x,
-                                                        tile_row_offset)
-        per_gaussian = sum_per_gaussian(stats, ent["s_gidx"], means3d.shape[0])
-        out = _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y, H, W,
-                                ent["num_rendered"], ent.get("overflow"))
+    with (torch.no_grad() if with_stats else contextlib.nullcontext()), \
+            profiling.span("render"):
+        with profiling.span("preprocess"):
+            pre = common.preprocess(means3d, opacities_raw, scales, rotations, shs, settings,
+                                    mean2d_offset_ndc=mean2d_offset_ndc,
+                                    colors_precomp=colors_precomp)
+        with profiling.span("bin_and_sort"):
+            ent = bin_and_sort(pre.rect_min, pre.rect_max, pre.tiles_touched, pre.depths,
+                               tiles_x, tiles_y, tile_row_offset, key_buffer_size)
+        with profiling.span("composite"):
+            if not with_stats:
+                color4, final_t = CompositeSorted.apply(
+                    pack_fields(pre), ent["s_gidx"], ent["range_start"], ent["range_end"],
+                    tiles_x, tile_row_offset)
+                return _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y,
+                                         H, W, ent["num_rendered"], ent.get("overflow"))
+            e = gather_entries(pack_fields(pre), ent["s_gidx"])
+            color4, final_t, _, stats = composite_fwd_stats(e, ent["range_start"],
+                                                            ent["range_end"], tiles_x,
+                                                            tile_row_offset)
+            per_gaussian = sum_per_gaussian(stats, ent["s_gidx"], means3d.shape[0])
+            out = _assemble_outputs(color4, final_t, pre, settings, tiles_x, tiles_y, H, W,
+                                    ent["num_rendered"], ent.get("overflow"))
         count = per_gaussian[0].to(torch.int32)
         out.update(gaussians_count=count, touched_pixels=count,
                    opacity_important_score=per_gaussian[1],

@@ -21,6 +21,7 @@ import abc
 from typing import Dict, Tuple
 
 from ..trainer import AbstractTrainer, TrainerWrapper
+from ..utils import profiling
 
 
 class AbstractQuantizer(abc.ABC):
@@ -67,9 +68,11 @@ class QuantizeTrainerWrapper(TrainerWrapper):
     def model(self):
         model = self.base_trainer.model
         if self.fires(self.curr_step):
-            ids_dict, codebook_dict = self.quantizer.quantize(model, update_codebook=True)
-            model = self.quantizer.dequantize(model, ids_dict, codebook_dict)
-            mesh = getattr(self.engine, "mesh", None)
-            if mesh is not None:
-                mesh.broadcast([p.detach() for p in model.param_dict().values()])
+            profiling.count("events.quantize")
+            with profiling.span("event.quantize", step=self.curr_step):
+                ids_dict, codebook_dict = self.quantizer.quantize(model, update_codebook=True)
+                model = self.quantizer.dequantize(model, ids_dict, codebook_dict)
+                mesh = getattr(self.engine, "mesh", None)
+                if mesh is not None:
+                    mesh.broadcast([p.detach() for p in model.param_dict().values()])
         return model

@@ -33,6 +33,7 @@ from ..dataset.camera import sweep_cameras
 from ..ops.sh import SH_C0
 from ..ops.shculling_stats import calculate_colours_variance
 from ..trainer import AbstractTrainer, BaseTrainer, Trainer, TrainerWrapper
+from ..utils import profiling
 from .gaussian_model import VariableSHGaussianModel
 
 
@@ -131,8 +132,11 @@ class SHCuller(TrainerWrapper):
     def optim_step(self):
         ret = super().optim_step()
         if self.fires(self.curr_step):
-            cull_sh_bands(self.model, self.dataset, self.cdist_threshold, self.std_threshold,
-                          mesh=getattr(self.engine, "mesh", None), engine=self.engine)
+            profiling.count("events.sh_cull")
+            with profiling.span("event.sh_cull", step=self.curr_step):
+                cull_sh_bands(self.model, self.dataset, self.cdist_threshold,
+                              self.std_threshold, mesh=getattr(self.engine, "mesh", None),
+                              engine=self.engine)
         return ret
 
 

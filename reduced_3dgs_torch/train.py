@@ -67,6 +67,7 @@ from .parallel import ShardedTrainer, distributed_init, make_mesh
 from .parallel.sharding import barrier, is_main_rank, rank_device
 from .prepare import backends, modes, prepare_gaussians, prepare_trainer
 from .trainer import AbstractTrainer
+from .utils import profiling
 from .utils.cache import enable_compile_cache
 from .utils.debug import trainer_snapshot
 from .utils.device import resolve_device
@@ -169,7 +170,8 @@ def training(dataset, gaussians, trainer: AbstractTrainer, quantizer, destinatio
         pos = (step - 1) % len(dataset)
         if pos == 0:
             if epoch_psnr:
-                avg_psnr = float(torch.stack(epoch_psnr).mean())
+                with profiling.sync("psnr"):
+                    avg_psnr = float(torch.stack(epoch_psnr).mean())
             epoch_psnr = []
             rng.shuffle(order)
         k = trainer.max_window(window_max) if window_max > 1 else 1
@@ -201,7 +203,8 @@ def training(dataset, gaussians, trainer: AbstractTrainer, quantizer, destinatio
             ema_loss = 0.4 * loss + 0.6 * ema_loss
         last = step + k - 1
         if log_interval - (step - 1) % log_interval <= k:
-            loss_now = float(ema_loss)
+            with profiling.sync("log"):
+                loss_now = float(ema_loss)
             if not math.isfinite(loss_now):
                 path = trainer_snapshot(trainer.engine, "nonfinite_loss", camera,
                                         extra={"step": step, "loss": loss_now})
@@ -215,6 +218,9 @@ def training(dataset, gaussians, trainer: AbstractTrainer, quantizer, destinatio
             save(last)
         step += k
     save(iteration)
+    if main_rank:
+        print("Counters: " + " ".join(f"{name}={value:g}" for name, value
+                                      in sorted(profiling.counters().items())), flush=True)
     return losses
 
 

@@ -22,6 +22,8 @@ from __future__ import annotations
 import abc
 from typing import Tuple
 
+from ..utils import profiling
+
 
 class AbstractTrainer(abc.ABC):
 
@@ -72,10 +74,12 @@ class AbstractTrainer(abc.ABC):
 
     def step(self, camera) -> Tuple:
         """One training step: returns (loss, render output dict)."""
-        model = self.model  # the property read that quantize wrappers hook
-        del model
-        loss, out = self.engine.update(self, camera)
-        self.optim_step()
+        with profiling.span("step", step=self.curr_step + 1):
+            model = self.model  # the property read that quantize wrappers hook
+            del model
+            loss, out = self.engine.update(self, camera)
+            with profiling.span("hooks"):
+                self.optim_step()
         return loss, out
 
     # ----------------------------------------------------------- windows
@@ -102,10 +106,12 @@ class AbstractTrainer(abc.ABC):
         the per-step losses as 0-d device tensors and ys with "loss" and,
         when the cameras carry ground truth, "psnr" per step. The caller
         sizes the window with ``max_window``."""
-        model = self.model  # the property read that quantize wrappers hook
-        del model
-        losses, ys = self.engine.update_many(self, cameras)
-        self.optim_step()
+        with profiling.span("window", step=self.curr_step + 1, k=len(cameras)):
+            model = self.model  # the property read that quantize wrappers hook
+            del model
+            losses, ys = self.engine.update_many(self, cameras)
+            with profiling.span("hooks"):
+                self.optim_step()
         return losses, ys
 
 

@@ -47,6 +47,7 @@ import torch
 
 from ..ops.rasterize.tiled import bucket_capacity, default_key_buffer_size, max_key_buffer
 from ..ops.ssim import ssim
+from ..utils import profiling
 from ..utils.math import l1_loss
 from ..utils.schedule import get_expon_lr_func
 from .abc import AbstractTrainer
@@ -252,6 +253,7 @@ class BaseTrainer(AbstractTrainer):
 
     def grow_key_buffer(self, camera):
         """Twice the buffer, up to ``max_key_buffer``."""
+        profiling.count("key_buffer.regrows")
         tiles_x, tiles_y = _tiles(camera)
         self._key_buffer_size[(camera.image_height, camera.image_width)] = min(
             self.key_buffer_for(camera) * 2,
@@ -269,6 +271,7 @@ class BaseTrainer(AbstractTrainer):
         while desired < target:
             desired = -(-int(desired * 1.15) // 2048) * 2048
         if desired < cur and int(desired * 1.15) <= cur:
+            profiling.count("key_buffer.shrinks")
             self._key_buffer_size[hw] = desired
 
     def _note_overflow(self, out, camera, steps: int = 1):
@@ -286,7 +289,10 @@ class BaseTrainer(AbstractTrainer):
                           out["num_rendered"].to(torch.float64)]), camera, steps))
         if sum(b[2] for b in self._overflow_backlog) < KEY_BUFFER_DRAIN:
             return
-        flags, rendered = torch.stack([b[0] for b in self._overflow_backlog]).cpu().numpy().T
+        with profiling.sync("overflow_drain"):
+            flags, rendered = torch.stack([b[0] for b in self._overflow_backlog]).cpu().numpy().T
+        profiling.count("key_buffer.drains")
+        profiling.count("key_buffer.overflows", int((flags > 0).sum()))
         if flags.any():
             self.grow_key_buffer(self._overflow_backlog[int(flags.argmax())][1])
             self._shrink_cooldown = 3
@@ -309,12 +315,13 @@ class BaseTrainer(AbstractTrainer):
         """Render through the key buffer with a zero [N,2] screen-space
         offset that requires grad and take the loss: (loss, render output,
         offset)."""
-        model = self.model
-        offset = torch.zeros((model.num_points, 2), dtype=torch.float32,
-                             device=model._xyz.device, requires_grad=True)
-        out = model.render(camera, mean2d_offset_ndc=offset,
-                           key_buffer_size=self.key_buffer_for(camera))
-        loss = loss_fn(model.param_dict(), out, camera, extras)
+        with profiling.span("forward"):
+            model = self.model
+            offset = torch.zeros((model.num_points, 2), dtype=torch.float32,
+                                 device=model._xyz.device, requires_grad=True)
+            out = model.render(camera, mean2d_offset_ndc=offset,
+                               key_buffer_size=self.key_buffer_for(camera))
+            loss = loss_fn(model.param_dict(), out, camera, extras)
         return loss, out, offset
 
     @torch.no_grad()
@@ -358,10 +365,12 @@ class BaseTrainer(AbstractTrainer):
             cam_params, apply, consume_grads = adjustment
             seen = apply(camera, cam_params)
         loss, out, offset = self.forward_loss(outer.loss_pure(), seen, extras)
-        loss.backward()
-        if adjustment is not None:
-            consume_grads({k: p.grad for k, p in cam_params.items()})
-        self.optimizer_step(out, offset)
+        with profiling.span("backward"):
+            loss.backward()
+        with profiling.span("optimizer"):
+            if adjustment is not None:
+                consume_grads({k: p.grad for k, p in cam_params.items()})
+            self.optimizer_step(out, offset)
         self._curr_step += 1
         loss = loss.detach()
         out = {k: v.detach() if torch.is_tensor(v) else v for k, v in out.items()}
@@ -376,8 +385,10 @@ class BaseTrainer(AbstractTrainer):
         truth, the overflow flag and the entry count. A CUDA graph captures
         exactly this."""
         loss, out, offset = self.forward_loss(outer.loss_pure(), camera, self._extras(outer))
-        loss.backward()
-        self.optimizer_step(out, offset, keep_grads=keep_grads)
+        with profiling.span("backward"):
+            loss.backward()
+        with profiling.span("optimizer"):
+            self.optimizer_step(out, offset, keep_grads=keep_grads)
         record = [loss.detach().to(torch.float64)]
         if camera.ground_truth_image is not None:
             record.append(window_psnr(out["render"].detach(), camera.ground_truth_image)

@@ -29,6 +29,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from ...utils import profiling
 from ..abc import AbstractTrainer, TrainerWrapper
 from ..base import Trainer
 from ..functional import append_rows, keep_rows
@@ -149,8 +150,10 @@ class DensificationTrainer(TrainerWrapper):
         if io is None:
             return ret
         loss, out, camera = io
-        self.apply_instruction(self.densifier.densify_and_prune(loss, out, camera,
-                                                                self.curr_step))
+        step = self.curr_step
+        with (profiling.span("event.densify", step=step) if self.densifier.fires_at(step)
+              else profiling.NO_SPAN):
+            self.apply_instruction(self.densifier.densify_and_prune(loss, out, camera, step))
         return ret
 
     def fires_at(self, step: int) -> bool:
@@ -159,17 +162,26 @@ class DensificationTrainer(TrainerWrapper):
     def apply_instruction(self, instruction: DensificationInstruction):
         """Remove the rows of ``remove_mask`` (over the rows that existed
         before the event) and append the instruction's new rows after the
-        kept ones, in one event. Rows appended are never removed in it."""
+        kept ones, in one event. Rows appended are never removed in it.
+        An instruction that carries a mask or rows counts as one
+        ``events.densify``, with the Gaussians it added and removed."""
         engine = self.engine
+        n = self.model.num_points
         keep = None if instruction.remove_mask is None else ~instruction.remove_mask.to(torch.bool)
-        new = appended_points(instruction, self.model._xyz.device)
-        if new is None:
-            if keep is not None:
-                engine.set_state_trees(keep_rows(engine.state_trees(), keep))
+        with profiling.sync("event_rows", sum(len(sp.values) for sp in instruction.appends)):
+            new = appended_points(instruction, self.model._xyz.device)
+        if keep is None and new is None:
             return
-        m = next(iter(new.values())).shape[0]
-        engine.set_state_trees(append_rows(engine.state_trees(), keep, new,
-                                           self.model.aux_for_new_points(m)))
+        m = 0 if new is None else next(iter(new.values())).shape[0]
+        trees = engine.state_trees()
+        with profiling.sync("event_rows",
+                            0 if keep is None else sum(len(t) for t in trees.values())):
+            trees = (keep_rows(trees, keep) if new is None else
+                     append_rows(trees, keep, new, self.model.aux_for_new_points(m)))
+        engine.set_state_trees(trees)
+        profiling.count("events.densify")
+        profiling.count("events.densify.added", m)
+        profiling.count("events.densify.removed", n + m - self.model.num_points)
 
     @classmethod
     def from_densifier_constructor(cls, densifier_constructor, model, dataset,

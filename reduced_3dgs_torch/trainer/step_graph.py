@@ -36,7 +36,8 @@ INPUT_FIELDS = ("world_view_transform", "full_proj_transform", "camera_center", 
 class StepGraph:
     """One captured step and its fixed inputs and output. ``capture_s`` is
     the capture's wall time (the warm-up step excluded) and ``pool_bytes``
-    the size of the graph's private memory pool."""
+    the size of the graph's private memory pool, taken only when a profiler
+    recorded the capture (else None)."""
 
     def __init__(self, key, graph, camera, record, first_record, tally, capture_s,
                  pool_bytes):

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .dataset.camera import build_camera
+from .utils import profiling
 from .utils.device import resolve_device
 
 INDEX_HTML = """<!DOCTYPE html>
@@ -111,7 +112,10 @@ def _orbit_camera(yaw, pitch, radius, target, height, width, fovy=math.radians(5
 def to_uint8(img: torch.Tensor) -> np.ndarray:
     """[3,H,W] in [0, 1] -> [H,W,3] uint8, truncating x 255 as the JAX
     viewer does."""
-    return (torch.clamp(img, 0, 1) * 255).to(torch.uint8).cpu().numpy().transpose(1, 2, 0)
+    arr = (torch.clamp(img, 0, 1) * 255).to(torch.uint8)
+    with profiling.sync("frame_copy"):
+        arr = arr.cpu()
+    return arr.numpy().transpose(1, 2, 0)
 
 
 def encode_png(arr: np.ndarray) -> bytes:
@@ -149,19 +153,20 @@ class ViewerApp:
                      scale: float = 1.0, sh_degree=None) -> np.ndarray:
         """One orbit frame as [H,W,3] uint8; the model's scale modifier and
         active SH degree are set for it and restored after."""
-        cam = self.camera(yaw, pitch, radius, target)
-        with self._lock:
-            old_scale = self.model.scale_modifier
-            old_deg = self.model.active_sh_degree
-            try:
-                self.model.scale_modifier = float(scale)
-                if sh_degree is not None:
-                    self.model.active_sh_degree = int(sh_degree)
-                img = self.model(cam)["render"]
-            finally:
-                self.model.scale_modifier = old_scale
-                self.model.active_sh_degree = old_deg
-        return to_uint8(img)
+        with profiling.span("frame"):
+            cam = self.camera(yaw, pitch, radius, target)
+            with self._lock:
+                old_scale = self.model.scale_modifier
+                old_deg = self.model.active_sh_degree
+                try:
+                    self.model.scale_modifier = float(scale)
+                    if sh_degree is not None:
+                        self.model.active_sh_degree = int(sh_degree)
+                    img = self.model(cam)["render"]
+                finally:
+                    self.model.scale_modifier = old_scale
+                    self.model.active_sh_degree = old_deg
+            return to_uint8(img)
 
     def render_frame(self, yaw: float = 0.0, pitch: float = 0.0, radius=None, target=None,
                      scale: float = 1.0, sh_degree=None) -> bytes:
@@ -169,7 +174,8 @@ class ViewerApp:
         t0 = time.perf_counter()
         arr = self.render_image(yaw, pitch, radius, target, scale, sh_degree)
         t1 = time.perf_counter()
-        png = encode_png(arr)
+        with profiling.span("encode"):
+            png = encode_png(arr)
         self.last_frame_ms = {"render": (t1 - t0) * 1e3,
                               "encode": (time.perf_counter() - t1) * 1e3}
         return png
