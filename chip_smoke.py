@@ -151,6 +151,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            in passes; (e) the statistics compositor's launches of phases 7,
            9, 14 and 15 against their schedules
 
+  phase 17 the preprocess kernels (csrc/preprocess.cu) alone against the
+           plain preprocess, at the bench scene and at its distribution with
+           1,250,000 Gaussians, view 0: the forward kernel's outputs; every
+           gradient of the backward kernel, in the training step's form and
+           with the camera's, against autograd through the plain version
+           (relative norm of the difference, bars 1e-4 and the camera's
+           1e-3), and the camera form's distance from autograd in float64
+           beside the plain float32 version's; in ms (CUDA events) the
+           forward kernel, the backward kernel (both forms), the plain
+           forward, the plain backward and both pairs forward and backward;
+           each kernel's device time under torch.profiler, and its bytes over
+           either time as a share of the card's 3.35 TB/s. The kernels'
+           launches on the last line are those of phases 11, 14, 15 and 16,
+           which check them against their renders: one forward kernel a
+           render, one backward kernel a B3 (phase 6 too)
+
 Phases 0-14 run with R3DGS_WINDOW=1 (one step per trainer.step call, which
 their checks wrap); phase 15 sets 16 for its training run. The kernels
 line's launches are the sums of phases 11, 14, 15 and 16 (each also given
@@ -390,9 +406,9 @@ def pool_mib(nbytes):
     return "an unsized" if nbytes is None else f"{nbytes / 2**20:.1f} MiB of"
 
 
-def bench_scene(seed=0):
-    """Raw parameters of the bench scene (bench.py's distribution) from numpy."""
-    n = N_GAUSSIANS
+def bench_scene(seed=0, n=N_GAUSSIANS):
+    """Raw parameters of the bench scene (bench.py's distribution) from numpy;
+    ``n`` Gaussians (the bench scene's 200,000 by default)."""
     rng = np.random.default_rng(seed)
     xyz = np.concatenate([rng.uniform(-1.2, 1.2, (n, 2)),
                           3.5 + rng.uniform(-1.5, 1.5, (n, 1))], axis=1)
@@ -1807,6 +1823,7 @@ def camera_phase(card, params_p, src, wrappers, tmp, dense_config, flagship_ms):
         f"angle in rad) {poses}")
     expected = {"composite_fwd": FLAGSHIP_STEPS, "composite_bwd": FLAGSHIP_STEPS,
                 "composite_fwd_stats": N_VIEWS * (len(F_IMPORTANCE) + 2 * len(F_CULL))}
+    expected = preprocess_expected(expected)
     if launches != expected:
         failures.append(f"train.main --mode {CAMERA_MODE} launched {launches}, expected "
                         f"{expected}")
@@ -1840,9 +1857,10 @@ def camera_phase(card, params_p, src, wrappers, tmp, dense_config, flagship_ms):
         counts = {n: fn.launches for n, fn in wrappers.items()}
         log(f"phase 11 [{card}]: camera gradient on {where} in {step_s:.2f} s, launches "
             f"{counts}")
-        if where.type == "cuda" and counts != {"composite_fwd": 1, "composite_fwd_stats": 0,
-                                               "composite_bwd": 1}:
-            failures.append("the card's camera step did not launch B1 and B3 once each")
+        if where.type == "cuda" and counts != preprocess_expected(
+                {"composite_fwd": 1, "composite_fwd_stats": 0, "composite_bwd": 1}):
+            failures.append("the card's camera step did not launch B1, B3 and the preprocess "
+                            "kernels once each")
     gk, gc = (torch.cat([g["rot"], g["trans"]]) for g in grads)
     scale = float(gc.abs().max())
     excess = (gk - gc).abs() - (GCAM_ATOL * scale + GCAM_RTOL * gc.abs())
@@ -1877,8 +1895,8 @@ def camera_phase(card, params_p, src, wrappers, tmp, dense_config, flagship_ms):
     log(f"phase 11 [{card}]: render.main --load_camera: psnr {got} (the trainer's adjusted "
         f"cameras {want}; the start poses {start_psnr}); max |render from the loaded cameras - "
         f"render from the adjusted ones| {err:.3e} (bar {TOL_COLOR}); launches {render_launches}")
-    if render_launches != {"composite_fwd": N_VIEWS, "composite_fwd_stats": 0,
-                           "composite_bwd": 0}:
+    if render_launches != preprocess_expected({"composite_fwd": N_VIEWS,
+                                               "composite_fwd_stats": 0, "composite_bwd": 0}):
         failures.append(f"render.main --load_camera launched {render_launches}")
     if not err <= TOL_COLOR or not all(abs(a - b) <= 1e-3 for a, b in zip(got, want)):
         failures.append(f"the loaded poses render {err} from the adjusted ones")
@@ -1899,8 +1917,8 @@ def camera_phase(card, params_p, src, wrappers, tmp, dense_config, flagship_ms):
         f"{packed['group_counts']}): {rows} rest rows against {15 * model.num_points} dense "
         f"(ratio {rows / (15 * model.num_points):.6f}); max |packed - dense render| "
         f"{packed_err:.3e} (bar {TOL_COLOR}); launches {packed_launches}")
-    if packed_launches != {"composite_fwd": N_VIEWS, "composite_fwd_stats": 0,
-                           "composite_bwd": 0}:
+    if packed_launches != preprocess_expected({"composite_fwd": N_VIEWS,
+                                               "composite_fwd_stats": 0, "composite_bwd": 0}):
         failures.append(f"render_packed launched {packed_launches}")
     if not packed_err <= TOL_COLOR or not rows < 15 * model.num_points:
         failures.append(f"the packed model renders {packed_err} from the dense one")
@@ -2453,13 +2471,29 @@ def profiling_phase(card, params_p, src, tmp):
 
 
 def counted(wrappers, fn):
-    """(fn(), the compositors' launches during it): every count set to 0
+    """(fn(), the kernels' launches during it): every count set to 0
     just before and read just after, the card synchronised."""
     for w in wrappers.values():
         w.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def with_preprocess(wrappers):
+    """The compositors' ``wrappers`` and the preprocess kernels'."""
+    from reduced_3dgs_torch.ops.rasterize import preprocess_kernel as pk
+    return dict(wrappers, preprocess_fwd=pk.preprocess_fwd, preprocess_bwd=pk.preprocess_bwd)
+
+
+def preprocess_expected(expected):
+    """The compositors' ``expected`` launches with the preprocess kernels'
+    they imply: each render's preprocess launches the forward kernel once
+    before its compositor (B1 or B2), and each backward through B3 launches
+    the backward kernel once."""
+    return dict(expected,
+                preprocess_fwd=expected["composite_fwd"] + expected["composite_fwd_stats"],
+                preprocess_bwd=expected["composite_bwd"])
 
 
 def band_phase(card, params, params_p, camera, loss_cam, gt, wrappers):
@@ -2812,9 +2846,9 @@ def convergence_phase(card, wrappers, tmp):
     # key buffer regrown by a sweep.
     sweeps = len(events["ImportancePruner"]) + 2 * len(events["SHCuller"])
     passes = sweeps + regrows.count
-    expected = {"composite_fwd": 2 * iters + n_cams + (1 + len(rows) + 1) * eval_views,
-                "composite_fwd_stats": n_cams * passes,
-                "composite_bwd": 2 * iters}
+    expected = preprocess_expected({
+        "composite_fwd": 2 * iters + n_cams + (1 + len(rows) + 1) * eval_views,
+        "composite_fwd_stats": n_cams * passes, "composite_bwd": 2 * iters})
     log(f"phase 14: event steps {json.dumps(events)}; baseline's "
         f"{json.dumps({k: (v[0], v[-1], len(v)) for k, v in watch['events']['baseline'].items() if v})} "
         f"(first, last, count); sweep passes {passes} for {sweeps} sweeps ({regrows.count} "
@@ -3187,8 +3221,9 @@ def window_phase(card, params_p, src, wrappers, tmp, dense_config):
     for first, k, n0, n1 in windows:
         if n1 != n0 and first + k - 1 not in instruction_steps:
             failures.append(f"N moved in the window ending after step {first + k - 1}")
-    expected = {"composite_fwd": FLAGSHIP_STEPS, "composite_bwd": FLAGSHIP_STEPS,
-                "composite_fwd_stats": len(dataset) * (len(F_IMPORTANCE) + 2 * len(F_CULL))}
+    expected = preprocess_expected({
+        "composite_fwd": FLAGSHIP_STEPS, "composite_bwd": FLAGSHIP_STEPS,
+        "composite_fwd_stats": len(dataset) * (len(F_IMPORTANCE) + 2 * len(F_CULL))})
     if launches != expected:
         failures.append(f"launched {launches}, expected {expected}")
     if len(values) != FLAGSHIP_STEPS or not all(map(math.isfinite, values)):
@@ -3287,9 +3322,9 @@ def compare_sweeps(card, model, cams, label):
     from reduced_3dgs_torch.importance import trainer as imp
     from reduced_3dgs_torch.ops.rasterize import composite
     from reduced_3dgs_torch.shculling import VariableSHGaussianModel, cull_sh_bands
-    wrappers = {"composite_fwd": composite.composite_fwd,
-                "composite_fwd_stats": composite.composite_fwd_stats,
-                "composite_bwd": composite.composite_bwd}
+    wrappers = with_preprocess({"composite_fwd": composite.composite_fwd,
+                                "composite_fwd_stats": composite.composite_fwd_stats,
+                                "composite_bwd": composite.composite_bwd})
     params = {k: p.detach().cpu().numpy() for k, p in model.param_dict().items()}
     degrees = model._degrees.cpu().numpy()
     culled = {how: VariableSHGaussianModel(3, device=model._xyz.device).load_numpy(params,
@@ -3309,8 +3344,8 @@ def compare_sweeps(card, model, cams, label):
     with eager_sweeps():
         cull_sh_bands(culled["eager"], cams, cdist, std_thr)
     failures = []
-    if launches != {"composite_fwd": 0, "composite_fwd_stats": 3 * len(cams),
-                    "composite_bwd": 0}:
+    if launches != preprocess_expected({"composite_fwd": 0, "composite_fwd_stats": 3 * len(cams),
+                                        "composite_bwd": 0}):
         failures.append(f"launched {launches}: {passes:g} passes, not one a sweep")
     count_diff = int((graph[0] != exact[0]).sum())
     score_rel = [float((g - e).abs().max() / e.abs().max()) for g, e in zip(graph[1:], exact[1:])]
@@ -3496,6 +3531,174 @@ def sweep_phase(card, params, b2_runs):
     return launches
 
 
+# Phase 17: the preprocess at the training step's size.
+PREPROCESS_LARGE_N = 1_250_000
+# The card's device memory bandwidth (H100 SXM data sheet), bytes/s.
+DRAM_BYTES_PER_S = 3.35e12
+
+
+def preprocess_bytes(n, sh_floats, backward):
+    """The bytes the preprocess kernels must move for n Gaussians at an SH
+    row of sh_floats floats, with the NDC offset: the forward reads means,
+    the opacity logit, scales, rotation, the SH row and the offset and writes
+    the ten fields, radius, rects and tile count; the backward reads the
+    same inputs but the offset, and the field gradient, and writes every
+    gradient. Each byte once."""
+    inputs = 4 * (3 + 1 + 3 + 4 + sh_floats)
+    if backward:
+        return n * (inputs + 4 * 10 + inputs + 4 * 2)
+    return n * (inputs + 4 * 2 + 4 * 10 + 4 * (1 + 2 + 2 + 1))
+
+
+def preprocess_phase(card, launches_by_phase):
+    """Phase 17 (see the module docstring). Returns the kernels' records for
+    the last line, with the launches of phases 11, 14, 15 and 16
+    (``launches_by_phase``)."""
+    from reduced_3dgs_torch.ops.rasterize import common, composite
+    from reduced_3dgs_torch.ops.rasterize import preprocess_kernel as pk
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    rows = {}
+    camera_names = ("viewmatrix", "projmatrix", "campos")
+    names = ("means3d", "opacities_raw", "scales", "rotations", "shs",
+             "mean2d_offset_ndc") + camera_names
+    for label, n in (("bench", N_GAUSSIANS), ("1.25M", PREPROCESS_LARGE_N)):
+        model = VariableSHGaussianModel(3, device=dev).load_numpy(bench_scene(0, n))
+        s = model.render_settings(view_camera(view_poses()[0], dev))
+        arrays = [a.detach().contiguous() for a in model.render_array_args()]
+        cam = (s.viewmatrix, s.projmatrix, s.campos)
+        off = torch.zeros((n, 2), device=dev)
+        g = torch.randn((composite.N_FIELDS, n), device=dev)
+        train = (True,) * 6 + (False,) * 4
+        with_camera = (True,) * 6 + (False,) + (True,) * 3
+
+        def leaves(dtype, camera):
+            out = [t.detach().to(dtype).clone().requires_grad_(True) for t in arrays + [off]]
+            cams = [t.detach().to(dtype).clone().requires_grad_(camera) for t in cam]
+            return out, cams
+
+        def plain_fields(ls, cams):
+            st = s._replace(viewmatrix=cams[0], projmatrix=cams[1], campos=cams[2])
+            return common.preprocess_plain(*ls[:5], st, ls[5]).fields
+
+        def kernel_fields(ls, cams):
+            return pk.Preprocess.apply(*ls[:5], ls[5], None, *cams, s)[0]
+
+        def grads(fields_of, dtype, camera):
+            ls, cams = leaves(dtype, camera)
+            wrt = ls + (cams if camera else [])
+            got = torch.autograd.grad((fields_of(ls, cams) * g.to(dtype)).sum(), wrt)
+            return dict(zip(names, got))
+
+        def plain_fwd():
+            return common.preprocess_plain(*arrays, s, off).fields
+
+        def plain_pair():
+            grads(plain_fields, torch.float32, False)
+
+        def kernel_pair():
+            grads(kernel_fields, torch.float32, False)
+
+        # The plain backward alone: autograd through one recorded forward.
+        ls, cams = leaves(torch.float32, False)
+        plain_loss = (plain_fields(ls, cams) * g).sum()
+        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(plain_loss, ls, retain_graph=True),
+                               repeats=10)
+        del plain_loss, ls, cams
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: pk.preprocess_fwd(*arrays, off, None, *cam, s))
+            bwd_ms = cuda_ms(lambda: pk.preprocess_bwd(g, *arrays, None, *cam, s, train))
+            cam_ms = cuda_ms(lambda: pk.preprocess_bwd(g, *arrays, None, *cam, s, with_camera))
+            plain_ms = cuda_ms(plain_fwd)
+            fwd_dev = kernel_device_ms(device_busy(
+                lambda: pk.preprocess_fwd(*arrays, off, None, *cam, s))[4], "preprocess_fwd_kernel")
+            bwd_dev = kernel_device_ms(device_busy(
+                lambda: pk.preprocess_bwd(g, *arrays, None, *cam, s, train))[4],
+                "preprocess_bwd_kernel")
+            got = pk.preprocess_fwd(*arrays, off, None, *cam, s)
+            want = plain_fwd()
+            want_ints = common.preprocess_plain(*arrays, s, off)[5:9]
+        pair_ms = cuda_ms(kernel_pair, repeats=10)
+        plain_pair_ms = cuda_ms(plain_pair, repeats=10)
+        err = float((got[0] - want).abs().max())
+        far = int((~torch.isclose(got[0], want, rtol=1e-4, atol=1e-6)).sum())
+        off_rows = [int((a != b).reshape(n, -1).any(-1).sum()) for a, b in zip(got[1:], want_ints)]
+
+        # The backward against autograd through the plain version, in the
+        # training step's form and with the camera's gradient; the camera
+        # form also against autograd in float64, with the plain float32
+        # version's distance from it beside the kernel's.
+        grad_err, f64_err = {}, {}
+        for form, camera in (("train", False), ("with_camera", True)):
+            kernel = grads(kernel_fields, torch.float32, camera)
+            plain = grads(plain_fields, torch.float32, camera)
+            grad_err[form] = {k: float((kernel[k] - plain[k]).norm() / plain[k].norm())
+                              for k in kernel}
+            if camera:
+                exact = grads(plain_fields, torch.float64, True)
+                f64_err = {k: (float((kernel[k].double() - exact[k]).norm() / exact[k].norm()),
+                               float((plain[k].double() - exact[k]).norm() / exact[k].norm()))
+                           for k in exact}
+                del exact
+            del kernel, plain
+        bad = {form: {k: e for k, e in errs.items()
+                      if not e <= (1e-3 if k in camera_names else 1e-4)}
+               for form, errs in grad_err.items()}
+        sh_floats = arrays[4].shape[1] * 3
+        fwd_bytes = preprocess_bytes(n, sh_floats, False)
+        bwd_bytes = preprocess_bytes(n, sh_floats, True)
+        rows[label] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_ms,
+                           plain_bwd_ms=plain_bwd_ms,
+                           fwd_err=err, bwd_err=max(max(e.values()) for e in grad_err.values()),
+                           fwd_bound=fwd_bytes / DRAM_BYTES_PER_S * 1e3,
+                           bwd_bound=bwd_bytes / DRAM_BYTES_PER_S * 1e3)
+        device_text = "not measured (the profiler saw no device time)"
+        if fwd_dev > 0 and bwd_dev > 0:
+            device_text = (
+                f"forward {fwd_dev:.4f} ms "
+                f"({100 * fwd_bytes / (fwd_dev * 1e-3) / DRAM_BYTES_PER_S:.1f}%), backward "
+                f"{bwd_dev:.4f} ms ({100 * bwd_bytes / (bwd_dev * 1e-3) / DRAM_BYTES_PER_S:.1f}%)")
+        log(f"phase 17 [{card}]: {label} (N={n}, SH row {sh_floats} floats): forward kernel "
+            f"{fwd_ms:.4f} ms ({fwd_bytes / 1e6:.1f} MB, "
+            f"{100 * fwd_bytes / (fwd_ms * 1e-3) / DRAM_BYTES_PER_S:.1f}% of "
+            f"{DRAM_BYTES_PER_S / 1e12:.2f} TB/s), backward kernel {bwd_ms:.4f} ms "
+            f"({bwd_bytes / 1e6:.1f} MB, "
+            f"{100 * bwd_bytes / (bwd_ms * 1e-3) / DRAM_BYTES_PER_S:.1f}%), with the camera's "
+            f"gradient {cam_ms:.4f} ms; device time under the profiler: {device_text}; "
+            f"plain forward {plain_ms:.4f} ms, plain backward (autograd) {plain_bwd_ms:.4f} ms; "
+            f"forward and backward through autograd: kernels {pair_ms:.4f} ms, plain "
+            f"{plain_pair_ms:.4f} ms; fields max abs err {err:.2e}, {far} values outside 1e-4 "
+            f"relative and 1e-6 absolute, rows off (radii, rect_min, rect_max, tiles) "
+            f"{off_rows}")
+        log(f"phase 17 [{card}]: {label}: |kernel - plain| / |plain| of each gradient (bars "
+            f"1e-4, the camera's 1e-3): {json.dumps(grad_err)}; with the camera's, distance "
+            f"from float64 autograd (kernel, plain float32): {json.dumps(f64_err)}")
+        if far or max(off_rows) > 1e-5 * n:
+            raise AssertionError(f"phase 17 [{label}]: the forward kernel left the plain "
+                                 f"version: {far} values, {off_rows} rows")
+        if any(bad.values()):
+            raise AssertionError(f"phase 17 [{label}]: the backward kernel left autograd "
+                                 f"through the plain version: {bad}")
+        del model, arrays, got, want, g, off
+        torch.cuda.empty_cache()
+    log(f"phase 17 [{card}]: {time.perf_counter() - t_phase:.1f} s")
+    big = rows["1.25M"]
+    source = "reduced_3dgs_torch/ops/rasterize/csrc/preprocess.cu"
+    records = []
+    for kind in ("fwd", "bwd"):
+        name = f"preprocess_{kind}"
+        records.append({
+            "name": name, "route": "cuda", "source": source, "replaces": None,
+            "launches": sum(launches_by_phase[name].values()),
+            "launches_by_phase": launches_by_phase[name],
+            # The backward's error is its largest relative norm error of a gradient.
+            ("max_abs_err" if kind == "fwd" else "max_rel_norm_err"): big[f"{kind}_err"],
+            "ms": big[f"{kind}_ms"], "plain_ms": big[f"plain_{kind}_ms"],
+            "bound_ms": big[f"{kind}_bound"], "bound_by": "bytes", "library_ms": None})
+    return records
+
+
 def card_name():
     from reduced_3dgs_torch.tools.convergence_proof import smi_line
     line = smi_line()
@@ -3535,6 +3738,8 @@ def run(tmp):
     dev = torch.device("cuda")
     wrappers = {"composite_fwd": composite_fwd, "composite_fwd_stats": composite_fwd_stats,
                 "composite_bwd": composite_bwd}
+    # Phases 6, 11, 14, 15 and 16 count the preprocess kernels too.
+    all_wrappers = with_preprocess(wrappers)
     # Phases 0-14 step one camera a call (their checks wrap trainer.step);
     # the subprocesses of phases 10-13 inherit it.
     os.environ["R3DGS_WINDOW"] = "1"
@@ -3851,14 +4056,14 @@ def run(tmp):
     trainer = Trainer(train_model, dataset)
     train_model.active_sh_degree = 3
     out_dir = os.path.join(tmp, "train")
-    for fn in wrappers.values():
+    for fn in all_wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
     losses = training(dataset, train_model, trainer, None, out_dir, iteration=TRAIN_STEPS,
                       save_iterations=[TRAIN_STEPS])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {name: fn.launches for name, fn in all_wrappers.items()}
     values = torch.stack(losses).cpu().tolist()
     first, last = statistics.mean(values[:4]), statistics.mean(values[-4:])
     log(f"phase 6: training() {TRAIN_STEPS} steps on {len(dataset)} views in {wall:.2f} s; "
@@ -3868,10 +4073,11 @@ def run(tmp):
         raise AssertionError(f"training losses are not all finite: {values}")
     if not last < first:
         raise AssertionError("training did not reduce the loss")
-    if launches != {"composite_fwd": TRAIN_STEPS, "composite_fwd_stats": 0,
-                    "composite_bwd": TRAIN_STEPS}:
+    if launches != preprocess_expected({"composite_fwd": TRAIN_STEPS, "composite_fwd_stats": 0,
+                                        "composite_bwd": TRAIN_STEPS}):
         raise AssertionError(f"training launched {launches}, expected {TRAIN_STEPS} of the "
-                             "forward and backward compositors and no statistics compositor")
+                             "forward and backward compositors and preprocess kernels and no "
+                             "statistics compositor")
     saved = VariableSHGaussianModel(3, device=dev).load_ply(
         os.path.join(out_dir, "point_cloud", f"iteration_{TRAIN_STEPS}", "point_cloud.ply"))
     finite = all(bool(torch.isfinite(p).all()) for p in saved.param_dict().values())
@@ -3978,7 +4184,7 @@ def run(tmp):
 
     # ---------------------------------------------------------------- phase 11
     t0 = time.perf_counter()
-    camera_launches = camera_phase(card, params_p, src, wrappers, tmp, dense_config,
+    camera_launches = camera_phase(card, params_p, src, all_wrappers, tmp, dense_config,
                                    flagship_ms)
     log(f"phase 11 [{card}]: {time.perf_counter() - t0:.1f} s")
 
@@ -4005,12 +4211,12 @@ def run(tmp):
 
     # ---------------------------------------------------------------- phase 14
     t0 = time.perf_counter()
-    convergence_launches, convergence_b2 = convergence_phase(card, wrappers, tmp)
+    convergence_launches, convergence_b2 = convergence_phase(card, all_wrappers, tmp)
     torch.cuda.empty_cache()
     log(f"phase 14 [{card}]: {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- phase 15
-    window_launches = window_phase(card, params_p, src, wrappers, tmp, dense_config)
+    window_launches = window_phase(card, params_p, src, all_wrappers, tmp, dense_config)
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- phase 16
@@ -4023,7 +4229,10 @@ def run(tmp):
     torch.cuda.empty_cache()
     launches_by_phase = {name: {"11": camera_launches[name], "14": convergence_launches[name],
                                 "15": window_launches[name], "16": sweep_launches[name]}
-                         for name in wrappers}
+                         for name in all_wrappers}
+
+    # ---------------------------------------------------------------- phase 17
+    preprocess_records = preprocess_phase(card, launches_by_phase)
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
@@ -4065,7 +4274,7 @@ def run(tmp):
         "bound_ms": bwd_bound,
         "bound_by": bwd_bound_by,
         "library_ms": None,
-    }]}))
+    }] + preprocess_records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

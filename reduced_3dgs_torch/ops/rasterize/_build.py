@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
+_f = ctypes.c_float
 # C signature of each kernel's launcher, by symbol; every launcher returns a
 # cudaError_t. tile_order is int32 [num_tiles] scratch that the launcher
 # fills (the order in which blocks take tiles) before it launches the kernel.
@@ -45,11 +46,33 @@ ARGTYPES = {
     #               tiles_x, tile_row_offset, final_t, latch, g_color4, g_t, grads,
     #               stream)
     "composite_bwd": (_p, _i, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _p, _p),
+    # preprocess_fwd(n, degree, sh_stride, aligned, means, opac, scales, rots, shs,
+    #                colors, offset, view, proj, campos, c_stride, H, W, tiles_x, tiles_y,
+    #                fx, fy, lim_x, lim_y, modifier, fields, radii, rect_min, rect_max,
+    #                tiles, stream)
+    "preprocess_fwd": (_i, _i, _i, _i, *(_p,) * 10, *(_i,) * 5, *(_f,) * 5, *(_p,) * 6),
+    # preprocess_bwd(n, degree, sh_stride, aligned, means, opac, scales, rots, shs,
+    #                view, proj, campos, c_stride, H, W, tiles_x, tiles_y, fx, fy, lim_x,
+    #                lim_y, modifier, g_fields, g_stride, d_means, d_opac, d_scales,
+    #                d_rots, d_shs, d_offset, d_colors, cam_partial, cam_out, stream)
+    "preprocess_bwd": (_i, _i, _i, _i, *(_p,) * 8, *(_i,) * 5, *(_f,) * 5, _p,
+                       ctypes.c_longlong, *(_p,) * 10),
 }
 # The source (csrc/<name>.cu, and the library built from it) of each symbol.
 SOURCE_OF = {"composite_fwd": "composite_fwd", "composite_fwd_stats": "composite_fwd",
-             "composite_bwd": "composite_bwd"}
+             "composite_bwd": "composite_bwd", "preprocess_fwd": "preprocess",
+             "preprocess_bwd": "preprocess"}
 SOURCES = tuple(sorted(set(SOURCE_OF.values())))
+# nvcc flags of one source beside NVCC_FLAGS. The preprocess rounds every
+# product and sum on its own, as the plain version does (no contraction into
+# fused multiply-adds), so that the near cull and the integer rectangles
+# follow the plain version's bits.
+SOURCE_FLAGS = {"preprocess": ("-fmad=false",)}
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The nvcc flags of source ``name``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -61,7 +84,7 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + sorted(
             glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
@@ -85,7 +108,7 @@ def build_libraries(names) -> None:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         src = os.path.join(CSRC_DIR, f"{name}.cu")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.Popen([_nvcc(), *nvcc_flags(name), "-o", tmp, src],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, proc, tmp, out))
     failed = []
@@ -113,27 +136,34 @@ def set_argtypes(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """The kernel library built from ``csrc/<name>.cu``, compiled first if
-    it is not built yet, with its launchers' argtypes set. Raises
-    RuntimeError with nvcc's output if the build fails."""
-    build_libraries([name])
+    """The kernel library built from ``csrc/<name>.cu``, with its launchers'
+    argtypes set. When it is not built yet, every source not built yet is
+    compiled first, all at once: a run that needs one library soon needs
+    the others, and parallel builds cost the longest one alone. Raises
+    RuntimeError with nvcc's output if a build fails."""
+    build_libraries(SOURCES)
     return set_argtypes(ctypes.CDLL(_library_path(name)), name)
 
 
 def _kernel_name(mangled: str) -> str:
-    """The kernel's identifier in a mangled name, with its bool template
-    argument: ``composite_fwd_kernel<false>``. Reads the length-prefixed
-    names of ``_Z<name>`` or ``_ZN<name><name>...`` in order."""
+    """The kernel's identifier in a mangled name, with its bool and int
+    template arguments: ``composite_fwd_kernel<false>``,
+    ``preprocess_bwd_kernel<-1, true>``. Reads the length-prefixed names of
+    ``_Z<name>`` or ``_ZN<name><name>...`` in order."""
     pos = 3 if mangled.startswith("_ZN") else 2
     while m := re.match(r"\d+", mangled[pos:]):
         start = pos + m.end()
         pos = start + int(m.group())
         ident = mangled[start:pos]
         if ident.endswith("_kernel"):
-            for code, arg in (("ILb0E", "<false>"), ("ILb1E", "<true>")):
-                if mangled.startswith(code, pos):
-                    return ident + arg
-            return ident
+            args = re.match(r"I((?:L[bi]n?\d+E)+)E", mangled[pos:])
+            if not args:
+                return ident
+            values = []
+            for kind, neg, digits in re.findall(r"L([bi])(n?)(\d+)E", args.group(1)):
+                values.append(("false", "true")[int(digits)] if kind == "b"
+                              else f"{'-' if neg else ''}{digits}")
+            return f"{ident}<{', '.join(values)}>"
     return mangled
 
 

@@ -10,6 +10,13 @@ are binned with the alpha-contour box, which is never wider than the
 colours, used as they are (no offset, no clamp), as the packed-SH render
 does. ``mark_visible`` is the rasterizer's frustum test, which reduces to
 the near cull.
+
+On CUDA tensors ``preprocess`` runs the two hand-written kernels of
+``csrc/preprocess.cu`` through ``preprocess_kernel.Preprocess``; on CPU
+tensors it runs ``preprocess_plain``, the same function in plain PyTorch
+(the version the tests hold to the JAX package). There is no fallback from
+one to the other. Either way the float fields are the rows of one [10, N]
+matrix, ``fields``, in the compositor's row order.
 """
 from __future__ import annotations
 
@@ -47,6 +54,9 @@ class PreprocessedGaussians(NamedTuple):
     rect_min: torch.Tensor        # [N,2] int32 tile rect (x,y)
     rect_max: torch.Tensor        # [N,2] int32 tile rect, exclusive
     tiles_touched: torch.Tensor   # [N] int32
+    # [10,N] the compositor's field matrix (``composite.pack_fields``' row
+    # order); the float fields above are views of its rows.
+    fields: torch.Tensor
 
 
 def tile_grid(settings: RenderSettings):
@@ -60,7 +70,36 @@ def preprocess(means3d: torch.Tensor, opacities_raw: torch.Tensor,
                shs: torch.Tensor, settings: RenderSettings,
                mean2d_offset_ndc: Optional[torch.Tensor] = None,
                colors_precomp: Optional[torch.Tensor] = None) -> PreprocessedGaussians:
-    """Screen-space quantities of N Gaussians.
+    """Screen-space quantities of N Gaussians; the arguments are
+    ``preprocess_plain``'s.
+
+    CPU tensors go to ``preprocess_plain``. CUDA tensors go through the
+    kernels (``preprocess_kernel.Preprocess``, which checks them and raises
+    on any other device), and ``fields`` is the matrix they wrote."""
+    if means3d.device.type == "cpu":
+        return preprocess_plain(means3d, opacities_raw, scales, rotations, shs, settings,
+                                mean2d_offset_ndc, colors_precomp)
+    from .preprocess_kernel import Preprocess
+    fields, radii, rect_min, rect_max, tiles_touched = Preprocess.apply(
+        means3d, opacities_raw, scales, rotations, shs, mean2d_offset_ndc, colors_precomp,
+        settings.viewmatrix, settings.projmatrix, settings.campos, settings)
+    return _with_fields(fields, radii, rect_min, rect_max, tiles_touched)
+
+
+def _with_fields(fields, radii, rect_min, rect_max, tiles_touched) -> PreprocessedGaussians:
+    """The result whose float fields are the rows of ``fields`` [10,N]."""
+    return PreprocessedGaussians(
+        depths=fields[9], means2d=fields[0:2].T, conic=fields[2:5].T, opacity=fields[5],
+        rgb=fields[6:9].T, radii=radii, rect_min=rect_min, rect_max=rect_max,
+        tiles_touched=tiles_touched, fields=fields)
+
+
+def preprocess_plain(means3d: torch.Tensor, opacities_raw: torch.Tensor,
+                     scales: torch.Tensor, rotations: torch.Tensor,
+                     shs: torch.Tensor, settings: RenderSettings,
+                     mean2d_offset_ndc: Optional[torch.Tensor] = None,
+                     colors_precomp: Optional[torch.Tensor] = None) -> PreprocessedGaussians:
+    """Screen-space quantities of N Gaussians, in plain PyTorch.
 
     Args: means3d [N,3]; opacities_raw [N] or [N,1] opacity logits; scales
     [N,3] activated; rotations [N,4] normalised; shs [N,K,3] degree-masked
@@ -119,17 +158,9 @@ def preprocess(means3d: torch.Tensor, opacities_raw: torch.Tensor,
 
     radii = torch.where(visible, radius, torch.zeros_like(radius)).to(torch.int32)
     tiles_touched = torch.where(visible, tiles, torch.zeros_like(tiles))
-    return PreprocessedGaussians(
-        depths=depths,
-        means2d=point_image,
-        conic=conic,
-        opacity=opacity,
-        rgb=rgb,
-        radii=radii,
-        rect_min=rect_min,
-        rect_max=rect_max,
-        tiles_touched=tiles_touched,
-    )
+    fields = torch.stack([point_image[:, 0], point_image[:, 1], conic[:, 0], conic[:, 1],
+                          conic[:, 2], opacity, rgb[:, 0], rgb[:, 1], rgb[:, 2], depths])
+    return _with_fields(fields, radii, rect_min, rect_max, tiles_touched)
 
 
 def mark_visible(means3d: torch.Tensor, viewmatrix: torch.Tensor) -> torch.Tensor:

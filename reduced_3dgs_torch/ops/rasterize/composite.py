@@ -44,16 +44,14 @@ that it drops, so that whatever the buffer holds there reaches no Gaussian.
 one address, which made the per-Gaussian sum tens of times slower on the
 card; PERF.md §6.)
 
-Each wrapper counts its launches in ``.launches``. A launch made while the
-current stream captures a CUDA graph runs only when the graph is replayed:
-it goes to ``captured_launches`` instead, and whoever replays the graph adds
-what its capture recorded with ``add_replayed_launches``.
+Each wrapper counts its launches in ``.launches`` (``launches``).
 """
 from __future__ import annotations
 
 import torch
 
 from ... import config
+from .launches import count_launch, counted
 
 N_FIELDS = 10
 # Rows of the statistics compositor's per-entry output.
@@ -65,24 +63,6 @@ _PIXEL_CHUNK = 32
 
 # Scratch ids of a static key buffer's tail (see the module docstring).
 TAIL_SCRATCH = 4096
-# Launches recorded while a CUDA graph was being captured, by wrapper name.
-captured_launches = {"composite_fwd": 0, "composite_fwd_stats": 0, "composite_bwd": 0}
-
-
-def _count_launch(wrapper):
-    if torch.cuda.is_current_stream_capturing():
-        captured_launches[wrapper.__name__] += 1
-    else:
-        wrapper.launches += 1
-
-
-def add_replayed_launches(tally: dict):
-    """Count one replay of a graph whose capture recorded ``tally``
-    (wrapper name -> launches) on each wrapper."""
-    wrappers = {"composite_fwd": composite_fwd, "composite_fwd_stats": composite_fwd_stats,
-                "composite_bwd": composite_bwd}
-    for name, n in tally.items():
-        wrappers[name].launches += n
 
 
 def gather_entries(fields: torch.Tensor, s_gidx: torch.Tensor) -> torch.Tensor:
@@ -107,11 +87,9 @@ def _valid_count(range_end: torch.Tensor) -> int:
 
 
 def pack_fields(pre) -> torch.Tensor:
-    """Per-Gaussian field matrix [10, N] in the kernel's row order."""
-    return torch.stack([
-        pre.means2d[:, 0], pre.means2d[:, 1], pre.conic[:, 0],
-        pre.conic[:, 1], pre.conic[:, 2], pre.opacity, pre.rgb[:, 0],
-        pre.rgb[:, 1], pre.rgb[:, 2], pre.depths], dim=0)
+    """Per-Gaussian field matrix [10, N] in the kernel's row order: the
+    preprocess's ``fields``, whose rows its float fields are."""
+    return pre.fields
 
 
 def composite_fwd_plain(e: torch.Tensor, range_start: torch.Tensor,
@@ -215,6 +193,7 @@ def _check_inputs(e, range_start, range_end):
         raise ValueError("range_start and range_end differ in shape")
 
 
+@counted
 def composite_fwd(e: torch.Tensor, range_start: torch.Tensor,
                   range_end: torch.Tensor, tiles_x: int, tile_row_offset: int = 0):
     """Forward compositor: (color4 [T,256,4], final_T [T,256,1],
@@ -230,9 +209,7 @@ def composite_fwd(e: torch.Tensor, range_start: torch.Tensor,
     return _launch_fwd(composite_fwd, e, range_start, range_end, tiles_x, tile_row_offset)
 
 
-composite_fwd.launches = 0
-
-
+@counted
 def composite_fwd_stats(e: torch.Tensor, range_start: torch.Tensor,
                         range_end: torch.Tensor, tiles_x: int, tile_row_offset: int = 0):
     """Statistics compositor: the outputs of ``composite_fwd`` and stats
@@ -250,9 +227,6 @@ def composite_fwd_stats(e: torch.Tensor, range_start: torch.Tensor,
         return composite_fwd_stats_plain(e, range_start, range_end, tiles_x, tile_row_offset)
     return _launch_fwd(composite_fwd_stats, e, range_start, range_end, tiles_x,
                        tile_row_offset)
-
-
-composite_fwd_stats.launches = 0
 
 
 def _launch_fwd(wrapper, e, range_start, range_end, tiles_x, tile_row_offset):
@@ -285,7 +259,7 @@ def _launch_fwd(wrapper, e, range_start, range_end, tiles_x, tile_row_offset):
                 *(t.data_ptr() for t in outs), stream)
         if err != 0:
             raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
-        _count_launch(wrapper)
+        count_launch(wrapper)
     return tuple(outs)
 
 
@@ -349,6 +323,7 @@ def composite_bwd_plain(e: torch.Tensor, range_start: torch.Tensor,
     return all_grads
 
 
+@counted
 def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.Tensor,
                   tiles_x: int, final_t: torch.Tensor, latch: torch.Tensor,
                   g_color4: torch.Tensor, g_t: torch.Tensor,
@@ -398,11 +373,8 @@ def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.T
                 g_color4.data_ptr(), g_t.data_ptr(), grads.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
-        _count_launch(composite_bwd)
+        count_launch(composite_bwd)
     return grads
-
-
-composite_bwd.launches = 0
 
 
 class CompositeSorted(torch.autograd.Function):

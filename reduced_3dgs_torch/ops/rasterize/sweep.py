@@ -46,7 +46,7 @@ import torch
 
 from ...dataset import camera as camera_mod
 from ...utils import profiling
-from . import composite
+from . import launches
 from .tiled import bucket_capacity, default_key_buffer_size, max_key_buffer
 
 # The camera fields a sweep's body reads that hold tensors.
@@ -57,7 +57,7 @@ def capture_graph(eager, captured, device):
     """PyTorch's recipe for capturing work: ``eager()`` runs once on a side
     stream, then ``captured()`` is captured into a new ``CUDAGraph``
     (``torch.cuda.graph`` empties the allocator's cache first), with the
-    compositor launches the capture records. Returns (graph, eager()'s
+    kernel launches the capture records. Returns (graph, eager()'s
     result, captured()'s result, the launch tally, the capture's wall
     seconds, the bytes of the card's memory the graph's pool holds after
     it). The pool's size walks the allocator's whole snapshot, so it is
@@ -71,7 +71,7 @@ def capture_graph(eager, captured, device):
         main.wait_stream(side)
         if torch.is_tensor(first):
             first.record_stream(main)
-        before = dict(composite.captured_launches)
+        before = dict(launches.captured_launches)
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
@@ -81,7 +81,7 @@ def capture_graph(eager, captured, device):
         capture_s = time.perf_counter() - t0
     profiling.count("graph.captures")
     profiling.count("graph.capture_ms", capture_s * 1e3)
-    tally = {name: composite.captured_launches[name] - n for name, n in before.items()}
+    tally = {name: n - before.get(name, 0) for name, n in launches.captured_launches.items()}
     pool_bytes = pool_size(graph) if profiling.recording() else None
     return graph, first, out, tally, capture_s, pool_bytes
 
@@ -142,7 +142,7 @@ class SweepGraph:
         for f in INPUT_FIELDS:
             getattr(self.camera, f).copy_(getattr(camera, f))
         self.graph.replay()
-        composite.add_replayed_launches(self.tally)
+        launches.add_replayed_launches(self.tally)
 
 
 def _graph_pass(model, cameras, body) -> bool:

@@ -9,8 +9,8 @@ captured into a ``torch.cuda.CUDAGraph`` with its gradients left in the
 graph's fixed tensors. The graph reads its camera from fixed tensors: the
 camera's view and projection matrices, centre, background, ground truth and
 mask and depth maps when it carries them. ``replay`` copies a camera's into
-them, replays, counts the compositor launches the capture recorded
-(``composite.add_replayed_launches``) and returns a copy of the step's
+them, replays, counts the kernel launches the capture recorded
+(``launches.add_replayed_launches``) and returns a copy of the step's
 record (``BaseTrainer.window_step``). Everything else the step touches is
 the engine's state, read and written in place at the addresses the key
 (``BaseTrainer.graph_key``) holds.
@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from ..ops.rasterize import composite
+from ..ops.rasterize import launches
 from ..ops.rasterize.sweep import capture_graph
 
 # The camera fields a step reads that hold tensors.
@@ -73,6 +73,6 @@ class StepGraph:
             if dst is not None:
                 dst.copy_(getattr(camera, f))
         self.graph.replay()
-        composite.add_replayed_launches(self.tally)
+        launches.add_replayed_launches(self.tally)
         return self.record.clone()
 

@@ -49,8 +49,10 @@ The program's spans:
 
 Counters. ``count(name, n)`` adds to a dict of Python numbers; it runs only
 at the rare sites below, never per kernel, and always.
-``counters()`` returns a copy of it with the compositor's launch tallies
-(``composite.<wrapper>.launches``, kept where they live), and
+``counters()`` returns a copy of it with the kernels' launch tallies
+(``<module>.<wrapper>.launches`` of each wrapper ``ops/rasterize/launches``
+counts: ``composite.composite_fwd`` and the other compositors,
+``preprocess_kernel.preprocess_fwd`` and ``.preprocess_bwd``), and
 ``reset_counters()`` clears it. ``train.training`` prints them in one line
 at the end of a run. The program's counters:
 
@@ -169,12 +171,13 @@ def count(name: str, n=1):
 
 
 def counters() -> Dict[str, float]:
-    """A copy of the counters, with the compositor's launch tallies."""
-    from ..ops.rasterize import composite
+    """A copy of the counters, with the kernels' launch tallies."""
+    # The kernels' modules register their wrappers when they are imported.
+    from ..ops.rasterize import composite, launches, preprocess_kernel  # noqa: F401
     out = dict(_counters)
-    for wrapper in (composite.composite_fwd, composite.composite_fwd_stats,
-                    composite.composite_bwd):
-        out[f"composite.{wrapper.__name__}.launches"] = wrapper.launches
+    for wrapper in launches.wrappers():
+        module = wrapper.__module__.rsplit(".", 1)[-1]
+        out[f"{module}.{wrapper.__name__}.launches"] = wrapper.launches
     return out
 
 

@@ -37,6 +37,9 @@ def test_parse_ptxas_reads_every_kernel():
     ("_ZN52_GLOBAL__N__c9fe58a0_19_v0_composite_fwd_cu_005dd90020composite_fwd_kernelILb0EEEvPKf",
      "composite_fwd_kernel<false>"),
     ("_Z20composite_bwd_kernelPKfi", "composite_bwd_kernel"),
+    ("_ZN12_GLOBAL__N_121preprocess_fwd_kernelILi3EEEviibPKf", "preprocess_fwd_kernel<3>"),
+    ("_ZN12_GLOBAL__N_121preprocess_bwd_kernelILin1ELb1EEEviibPKf",
+     "preprocess_bwd_kernel<-1, true>"),
     ("not_mangled", "not_mangled"),
 ])
 def test_kernel_name_reads_the_mangled_name(mangled, name):
