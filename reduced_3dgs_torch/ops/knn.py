@@ -44,6 +44,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 # Bytes that one chunk's distance tensor and its top-k intermediates may
 # take on the device.
 _BUDGET_BYTES = 512 * 1024 ** 2
@@ -224,27 +226,30 @@ def knn(points: torch.Tensor, k: int, window: int = 512,
 
     ``mask`` [N] bool: points where it is False are never returned as
     neighbours, and their own rows are meaningless. Empty slots (fewer than
-    k valid candidates) hold an infinite distance and id -1."""
-    if mask is not None:
-        hi = torch.max(points, dim=0).values
-        lo = torch.min(points, dim=0).values
-        # Masked points go to a far corner, so that they sort away from the rest.
-        far = hi + 10.0 * (hi - lo + 1.0)
-        pts = torch.where(mask[:, None], points, far[None, :])
-    else:
-        pts = points
-    ds, ids = [], []
-    for o in range(n_orders):
-        d_o, i_o = _order_blocked_topk(pts, mask, _order_rotation(o), k, window, neighbors)
-        ds.append(d_o)
-        ids.append(i_o)
-    if n_orders > 1:
-        d, i = _merge_klists(torch.stack(ds, dim=1), torch.stack(ids, dim=1), k)
-    else:
-        d, i = ds[0], ids[0]
-    for _ in range(refine_rounds):
-        d, i = _chunked_refine(pts, k, d, i, refine_sample)
-    return d, torch.where(torch.isinf(d), torch.full_like(i, -1), i)
+    k valid candidates) hold an infinite distance and id -1. The search is
+    the span ``r3dgs.knn`` and counts its points under ``knn.points``."""
+    profiling.count("knn.points", points.shape[0])
+    with profiling.span("knn"):
+        if mask is not None:
+            hi = torch.max(points, dim=0).values
+            lo = torch.min(points, dim=0).values
+            # Masked points go to a far corner, so that they sort away from the rest.
+            far = hi + 10.0 * (hi - lo + 1.0)
+            pts = torch.where(mask[:, None], points, far[None, :])
+        else:
+            pts = points
+        ds, ids = [], []
+        for o in range(n_orders):
+            d_o, i_o = _order_blocked_topk(pts, mask, _order_rotation(o), k, window, neighbors)
+            ds.append(d_o)
+            ids.append(i_o)
+        if n_orders > 1:
+            d, i = _merge_klists(torch.stack(ds, dim=1), torch.stack(ids, dim=1), k)
+        else:
+            d, i = ds[0], ids[0]
+        for _ in range(refine_rounds):
+            d, i = _chunked_refine(pts, k, d, i, refine_sample)
+        return d, torch.where(torch.isinf(d), torch.full_like(i, -1), i)
 
 
 def knn_index_subset(points: torch.Tensor, k: int, neighbor_mask: torch.Tensor,

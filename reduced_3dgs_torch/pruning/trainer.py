@@ -51,6 +51,7 @@ from ..ops.redundancy import (allocate_minimum_redundancy_value,
                               find_minimum_projected_pixel_size,
                               sphere_ellipsoid_intersection)
 from ..trainer import AbstractDensifier, DensificationTrainer, NoopDensifier, OpacityPruner
+from ..utils import profiling
 
 MERCY_TYPES = ("redundancy_opacity", "redundancy_random", "opacity",
                "redundancy_opacity_opacity")
@@ -65,14 +66,17 @@ def camera_matrices(cameras):
 
 @torch.no_grad()
 def calculate_redundancy_metric(gaussians, cameras, pixel_scale: float = 1.0,
-                                num_neighbours: int = 30):
+                                num_neighbours: int = 30,
+                                indices: Optional[torch.Tensor] = None):
     """(minimum redundancy [N] int32, minimum pixel size [N]) of the model's
-    Gaussians over ``cameras``."""
+    Gaussians over ``cameras``; ``indices`` [N, num_neighbours] are the
+    neighbours when the caller has searched them (else ``knn`` here)."""
     xyz = gaussians._xyz.detach()
+    if indices is None:
+        _, indices = knn(xyz, num_neighbours)
     full_proj, inv_proj, heights, widths = camera_matrices(cameras)
     cube_size = find_minimum_projected_pixel_size(full_proj, inv_proj, xyz, heights, widths)
     half_diagonal = cube_size * pixel_scale * math.sqrt(3.0) / 2.0
-    _, indices = knn(xyz, num_neighbours)
     _, mask = sphere_ellipsoid_intersection(
         xyz, gaussians.get_scaling.detach(), gaussians.get_rotation.detach(), indices,
         half_diagonal)
@@ -171,12 +175,15 @@ def mercy_gaussians(model, dataset, box_size: float = 1.0, lambda_mercy: float =
                     rand: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One mercy event: the redundancy metric of ``model`` over the cameras
     of ``dataset`` with a sphere of ``box_size`` pixels, then the policy.
-    [N] bool removal mask on the model's device."""
+    [N] bool removal mask on the model's device. The neighbour search is the
+    span ``r3dgs.knn``, the rest ``r3dgs.redundancy``."""
     if mercy_type not in MERCY_TYPES:
         raise ValueError(f"unknown mercy_type {mercy_type!r}")
-    counts, _ = calculate_redundancy_metric(model, dataset, box_size, 30)
-    return mercy_policy(counts, _opacity(model), lambda_mercy, mercy_minimum, mercy_type,
-                        rand)
+    _, indices = knn(model._xyz.detach(), 30)
+    with profiling.span("redundancy"):
+        counts, _ = calculate_redundancy_metric(model, dataset, box_size, 30, indices)
+        return mercy_policy(counts, _opacity(model), lambda_mercy, mercy_minimum, mercy_type,
+                            rand)
 
 
 class BasePruner(OpacityPruner):
@@ -197,8 +204,12 @@ class BasePruner(OpacityPruner):
 
     @torch.no_grad()
     def prune(self) -> torch.Tensor:
-        remove_mask = mercy_gaussians(self.trainer.model, self.dataset, self.box_size,
-                                      self.lambda_mercy, self.mercy_minimum, self.mercy_type)
+        """The mercy mask (span ``r3dgs.event.mercy``, tallied under
+        ``events.mercy.removed``) ORed with the opacity and size mask."""
+        with profiling.span("event.mercy"):
+            remove_mask = mercy_gaussians(self.trainer.model, self.dataset, self.box_size,
+                                          self.lambda_mercy, self.mercy_minimum, self.mercy_type)
+            profiling.tally("events.mercy.removed", remove_mask.sum())
         return super().prune() | remove_mask
 
 

@@ -164,21 +164,27 @@ class DensificationTrainer(TrainerWrapper):
         before the event) and append the instruction's new rows after the
         kept ones, in one event. Rows appended are never removed in it.
         An instruction that carries a mask or rows counts as one
-        ``events.densify``, with the Gaussians it added and removed."""
-        engine = self.engine
-        n = self.model.num_points
-        keep = None if instruction.remove_mask is None else ~instruction.remove_mask.to(torch.bool)
-        with profiling.sync("event_rows", sum(len(sp.values) for sp in instruction.appends)):
-            new = appended_points(instruction, self.model._xyz.device)
-        if keep is None and new is None:
+        ``events.densify``, with the Gaussians it added and removed, and
+        reads the tallies the chain held (``profiling.flush_tallies``)."""
+        if (instruction.remove_mask is None and instruction.new_points is None
+                and not instruction.appends):
             return
-        m = 0 if new is None else next(iter(new.values())).shape[0]
-        trees = engine.state_trees()
-        with profiling.sync("event_rows",
-                            0 if keep is None else sum(len(t) for t in trees.values())):
-            trees = (keep_rows(trees, keep) if new is None else
-                     append_rows(trees, keep, new, self.model.aux_for_new_points(m)))
-        engine.set_state_trees(trees)
+        with profiling.span("event.apply"):
+            profiling.flush_tallies()
+            engine = self.engine
+            n = self.model.num_points
+            keep = (None if instruction.remove_mask is None
+                    else ~instruction.remove_mask.to(torch.bool))
+            with profiling.sync("event_rows",
+                                sum(len(sp.values) for sp in instruction.appends)):
+                new = appended_points(instruction, self.model._xyz.device)
+            m = 0 if new is None else next(iter(new.values())).shape[0]
+            trees = engine.state_trees()
+            with profiling.sync("event_rows",
+                                0 if keep is None else sum(len(t) for t in trees.values())):
+                trees = (keep_rows(trees, keep) if new is None else
+                         append_rows(trees, keep, new, self.model.aux_for_new_points(m)))
+            engine.set_state_trees(trees)
         profiling.count("events.densify")
         profiling.count("events.densify.added", m)
         profiling.count("events.densify.removed", n + m - self.model.num_points)

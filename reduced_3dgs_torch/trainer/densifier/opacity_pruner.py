@@ -20,6 +20,7 @@ from typing import Callable
 
 import torch
 
+from ...utils import profiling
 from .abc import AbstractDensifier, DensificationInstruction, DensifierWrapper
 
 
@@ -49,14 +50,17 @@ class OpacityPruner(DensifierWrapper):
 
     @torch.no_grad()
     def prune(self) -> torch.Tensor:
-        """[N] bool removal mask, on the model's device."""
-        engine = self.trainer.engine
-        params = engine.model.param_dict()
-        mask = torch.sigmoid(params["opacity"][:, 0]) < self.prune_opacity_threshold
-        if self._curr_prune_step > self.prune_big_from_iter:
-            mask |= engine.max_radii2d > self.prune_screensize_threshold
-            max_scaling = torch.max(torch.exp(params["scaling"]), dim=1).values
-            mask |= max_scaling > 0.1 * self.prune_percent_too_big * self.scene_extent
+        """[N] bool removal mask, on the model's device, tallied under
+        ``events.prune.removed``."""
+        with profiling.span("event.prune"):
+            engine = self.trainer.engine
+            params = engine.model.param_dict()
+            mask = torch.sigmoid(params["opacity"][:, 0]) < self.prune_opacity_threshold
+            if self._curr_prune_step > self.prune_big_from_iter:
+                mask |= engine.max_radii2d > self.prune_screensize_threshold
+                max_scaling = torch.max(torch.exp(params["scaling"]), dim=1).values
+                mask |= max_scaling > 0.1 * self.prune_percent_too_big * self.scene_extent
+            profiling.tally("events.prune.removed", mask.sum())
         return mask
 
     def fires(self, step: int) -> bool:

@@ -25,6 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ...utils import profiling
 from .abc import AbstractDensifier, AppendSpec, DensificationInstruction, DensifierWrapper
 
 
@@ -94,32 +95,35 @@ class SplitCloneDensifier(DensifierWrapper):
         ret = super().densify_and_prune(loss, out, camera, step)
         if not self.fires(step):
             return ret
-        engine = self.trainer.engine
-        params = {k: p.detach() for k, p in engine.model.param_dict().items()}
-        n, k = params["xyz"].shape[0], self.densify_n_split
-        denom = engine.xyz_grad_denom
-        grads = torch.where(denom > 0, engine.xyz_grad_accum / torch.clamp(denom, min=1),
-                            torch.zeros_like(engine.xyz_grad_accum))
-        scales = torch.exp(params["scaling"])                         # [N,3]
-        max_scaling = torch.max(scales, dim=1).values
-        hot = grads >= self.densify_grad_threshold
-        limit = self.densify_percent_dense * self.scene_extent
-        clone_sel = hot & (max_scaling <= limit)
-        split_sel = hot & (max_scaling > limit)
+        with profiling.span("event.split_clone"):
+            engine = self.trainer.engine
+            params = {k: p.detach() for k, p in engine.model.param_dict().items()}
+            n, k = params["xyz"].shape[0], self.densify_n_split
+            denom = engine.xyz_grad_denom
+            grads = torch.where(denom > 0, engine.xyz_grad_accum / torch.clamp(denom, min=1),
+                                torch.zeros_like(engine.xyz_grad_accum))
+            scales = torch.exp(params["scaling"])                         # [N,3]
+            max_scaling = torch.max(scales, dim=1).values
+            hot = grads >= self.densify_grad_threshold
+            limit = self.densify_percent_dense * self.scene_extent
+            clone_sel = hot & (max_scaling <= limit)
+            split_sel = hot & (max_scaling > limit)
 
-        if samples is None:
-            samples = self.draw_samples(n, step)
-        samples = samples * scales[:, None, :]
-        offsets = torch.einsum("nij,nkj->nki", build_rotation(params["rotation"]), samples)
-        split_vals = duplicate_values(params, k)
-        split_vals["xyz"] = params["xyz"][:, None, :] + offsets
-        split_vals["scaling"] = torch.log(torch.clamp(scales / (0.8 * k), min=1e-30))[
-            :, None].expand(n, k, 3)
+            if samples is None:
+                samples = self.draw_samples(n, step)
+            samples = samples * scales[:, None, :]
+            offsets = torch.einsum("nij,nkj->nki", build_rotation(params["rotation"]), samples)
+            split_vals = duplicate_values(params, k)
+            split_vals["xyz"] = params["xyz"][:, None, :] + offsets
+            split_vals["scaling"] = torch.log(torch.clamp(scales / (0.8 * k), min=1e-30))[
+                :, None].expand(n, k, 3)
 
-        engine.reset_densification_stats()
-        ret = ret.add_append(AppendSpec(clone_sel, duplicate_values(params, 1), 1))
-        ret = ret.add_append(AppendSpec(split_sel, split_vals, k))
-        return ret.merge_remove(split_sel)
+            engine.reset_densification_stats()
+            profiling.tally("events.clone.added", clone_sel.sum())
+            profiling.tally("events.split.added", split_sel.sum() * k)
+            ret = ret.add_append(AppendSpec(clone_sel, duplicate_values(params, 1), 1))
+            ret = ret.add_append(AppendSpec(split_sel, split_vals, k))
+            return ret.merge_remove(split_sel)
 
 
 def SplitCloneDensifierWrapper(

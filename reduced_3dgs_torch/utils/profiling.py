@@ -46,9 +46,25 @@ The program's spans:
                            clone, opacity, importance and mercy pruning
                            together), ``sh_cull``, ``quantize`` (the codebook
                            update at the start of a step)
+  r3dgs.event.split_clone  inside ``event.densify``: the split and clone
+                           selection and its new rows (``SplitCloneDensifier``)
+  r3dgs.event.prune        inside it: the opacity and size mask
+                           (``OpacityPruner.prune``)
+  r3dgs.event.mercy        inside it: ``pruning.trainer.mercy_gaussians``,
+                           holding
+  r3dgs.knn                ``ops.knn.knn`` (wherever it is called) and
+  r3dgs.redundancy         the pixel size over the cameras, the intersection,
+                           the minimum allocation and the mercy policy
+  r3dgs.event.apply        inside ``event.densify``: the instruction applied,
+                           its rows gathered and the state installed
+                           (``DensificationTrainer.apply_instruction``)
 
 Counters. ``count(name, n)`` adds to a dict of Python numbers; it runs only
-at the rare sites below, never per kernel, and always.
+at the rare sites below, never per kernel, and always. ``tally(name, n)``
+holds a count that is still on the card (a 0-d tensor) until
+``flush_tallies``, which reads every held count in one transfer (the sync
+site ``event_counts``) and adds them: an event's masks are counted so, when
+the event is applied.
 ``counters()`` returns a copy of it with the kernels' launch tallies
 (``<module>.<wrapper>.launches`` of each wrapper ``ops/rasterize/launches``
 counts: ``composite.composite_fwd`` and the other compositors,
@@ -63,7 +79,8 @@ at the end of a run. The program's counters:
                            (``viewer.to_uint8``), ``sweep_overflow`` (a
                            sweep pass's overflow flag), ``log`` and ``psnr``
                            (``train.training``), ``event_rows`` (an event's
-                           row selections, one per tensor cut by a mask)
+                           row selections, one per tensor cut by a mask),
+                           ``event_counts`` (an event's tallies)
   key_buffer.drains        reads of the step's overflow flags (every 64 steps)
   key_buffer.overflows     steps or windows those reads found overflowing
   key_buffer.regrows       the step's buffer doubled (at a drain, or by a
@@ -74,6 +91,14 @@ at the end of a run. The program's counters:
                            overflowed and doubled the sweep's buffer
   events.<kind>, events.<kind>.added, events.<kind>.removed   events applied,
                            and the Gaussians they added and removed
+  events.clone.added, events.split.added   the rows a densify event's clones
+                           and split children add (their sum is
+                           ``events.densify.added``)
+  events.prune.removed, events.mercy.removed   the rows the opacity and size
+                           mask and the mercy mask remove, each over the rows
+                           before the event (a row may be in both, and in the
+                           split's sources)
+  knn.points               the points ``ops.knn.knn`` searched
 """
 from __future__ import annotations
 
@@ -81,7 +106,7 @@ import contextlib
 import os
 import tempfile
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -89,6 +114,8 @@ from torch.autograd import profiler as _autograd_profiler
 # The context a span gives while no profiler records.
 NO_SPAN = contextlib.nullcontext()
 _counters: Dict[str, float] = {}
+# Counts still on the card: (name, 0-d tensor), read by flush_tallies.
+_tallies: List[Tuple[str, torch.Tensor]] = []
 
 
 @contextlib.contextmanager
@@ -170,6 +197,24 @@ def count(name: str, n=1):
     _counters[name] = _counters.get(name, 0) + n
 
 
+def tally(name: str, n: torch.Tensor):
+    """Add the count ``n``, a 0-d tensor that may still be on the card, to
+    the counter ``name`` at the next ``flush_tallies``."""
+    _tallies.append((name, n))
+
+
+def flush_tallies():
+    """Read the held tallies in one transfer and add them to their
+    counters; nothing when none is held."""
+    if not _tallies:
+        return
+    with sync("event_counts"):
+        values = torch.stack([n.to(torch.float64) for _, n in _tallies]).tolist()
+    for (name, _), value in zip(_tallies, values):
+        count(name, int(value))
+    _tallies.clear()
+
+
 def counters() -> Dict[str, float]:
     """A copy of the counters, with the kernels' launch tallies."""
     # The kernels' modules register their wrappers when they are imported.
@@ -182,5 +227,7 @@ def counters() -> Dict[str, float]:
 
 
 def reset_counters():
-    """Clear the counters (the compositor's tallies stay)."""
+    """Clear the counters and the held tallies (the compositor's launch
+    tallies stay)."""
     _counters.clear()
+    _tallies.clear()
