@@ -166,6 +166,16 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            launches on the last line are those of phases 11, 14, 15 and 16,
            which check them against their renders: one forward kernel a
            render, one backward kernel a B3 (phase 6 too)
+  phase 18 the binning kernels (csrc/binning.cu) against the plain binning
+           on the card, bit for bit, at the bench scene and at its
+           distribution with 1,250,000 Gaussians, view 0, through the
+           trainer's static key buffer and through the exact one; in ms (CUDA
+           events) bin_count, bin_sort, both together and the plain version
+           of each buffer; the device time of each kernel under
+           torch.profiler; the bytes the layer must move over those times as
+           a share of the card's 3.35 TB/s. Their launches, like the
+           preprocess kernels', are those of phases 11, 14, 15 and 16, which
+           hold them to their renders: one of each a render
 
 Phases 0-14 run with R3DGS_WINDOW=1 (one step per trainer.step call, which
 their checks wrap); phase 15 sets 16 for its training run. The kernels
@@ -2481,19 +2491,23 @@ def counted(wrappers, fn):
 
 
 def with_preprocess(wrappers):
-    """The compositors' ``wrappers`` and the preprocess kernels'."""
+    """The compositors' ``wrappers``, the preprocess kernels' and the
+    binning kernels'."""
+    from reduced_3dgs_torch.ops.rasterize import binning_kernel as bk
     from reduced_3dgs_torch.ops.rasterize import preprocess_kernel as pk
-    return dict(wrappers, preprocess_fwd=pk.preprocess_fwd, preprocess_bwd=pk.preprocess_bwd)
+    return dict(wrappers, preprocess_fwd=pk.preprocess_fwd, preprocess_bwd=pk.preprocess_bwd,
+                bin_count=bk.bin_count, bin_sort=bk.bin_sort)
 
 
 def preprocess_expected(expected):
-    """The compositors' ``expected`` launches with the preprocess kernels'
-    they imply: each render's preprocess launches the forward kernel once
-    before its compositor (B1 or B2), and each backward through B3 launches
-    the backward kernel once."""
-    return dict(expected,
-                preprocess_fwd=expected["composite_fwd"] + expected["composite_fwd_stats"],
-                preprocess_bwd=expected["composite_bwd"])
+    """The compositors' ``expected`` launches with the preprocess and
+    binning kernels' they imply: each render's preprocess launches the
+    forward kernel once and its binning each binning kernel once before its
+    compositor (B1 or B2), and each backward through B3 launches the
+    backward kernel once."""
+    renders = expected["composite_fwd"] + expected["composite_fwd_stats"]
+    return dict(expected, preprocess_fwd=renders, preprocess_bwd=expected["composite_bwd"],
+                bin_count=renders, bin_sort=renders)
 
 
 def band_phase(card, params, params_p, camera, loss_cam, gt, wrappers):
@@ -3699,6 +3713,99 @@ def preprocess_phase(card, launches_by_phase):
     return records
 
 
+def binning_bytes(n, entries, num_tiles, static):
+    """The bytes the binning must move: each Gaussian's rects, tile count
+    and depth read once (24 B), each entry's tile id and Gaussian id
+    written as int64 and, for a static buffer, its valid flag, and two
+    int32 range bounds a tile."""
+    return 24 * n + (17 if static else 16) * entries + 8 * num_tiles
+
+
+def binning_phase(card, launches_by_phase):
+    """Phase 18 (see the module docstring). Returns the kernels' records for
+    the last line, with the launches of phases 11, 14, 15 and 16
+    (``launches_by_phase``)."""
+    from reduced_3dgs_torch.ops.rasterize import binning_kernel as bk
+    from reduced_3dgs_torch.ops.rasterize import common, tiled
+    from reduced_3dgs_torch.shculling import VariableSHGaussianModel
+    from reduced_3dgs_torch.trainer.base import KEY_BUFFER_FACTOR
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    rows = {}
+    for label, n in (("bench", N_GAUSSIANS), ("1.25M", PREPROCESS_LARGE_N)):
+        model = VariableSHGaussianModel(3, device=dev).load_numpy(bench_scene(0, n))
+        camera = view_camera(view_poses()[0], dev)
+        s = model.render_settings(camera)
+        tx, ty = common.tile_grid(s)
+        with torch.no_grad():
+            pre = common.preprocess(*model.render_array_args(), s)
+        args = (pre.rect_min, pre.rect_max, pre.tiles_touched, pre.depths, tx, ty)
+        cap = tiled.bucket_capacity(n)       # the trainer's first buffer (key_buffer_for)
+        K = min(max(tiled.default_key_buffer_size(cap, tx, ty), KEY_BUFFER_FACTOR * cap),
+                tiled.max_key_buffer(cap, tx, ty))
+        total = tiled.bin_and_sort(*args)["num_rendered"]
+        state = {}
+
+        def count():
+            state["c"] = bk.bin_count(*args[:4], ty)
+
+        for name, k in (("static", K), ("exact", None)):
+            got = tiled.bin_and_sort(*args, key_buffer_size=k)
+            want = tiled.bin_and_sort_plain(*args, key_buffer_size=k)
+            torch.cuda.synchronize()
+            differ = [key for key in want if not (
+                torch.equal(got[key], want[key]) if isinstance(want[key], torch.Tensor)
+                else got[key] == want[key])]
+            if differ or set(got) != set(want):
+                raise AssertionError(f"phase 18 [{label}, {name}]: the kernels' {differ} "
+                                     f"differ from the plain binning's")
+        entries = min(total, K)
+        sort_args = (K, tx, ty, 0, True)
+        times = dict(
+            count=cuda_ms(lambda: bk.bin_count(*args[:4], ty)),
+            sort=cuda_ms(lambda: bk.bin_sort(state["c"], *sort_args), setup=count),
+            static=cuda_ms(lambda: tiled.bin_and_sort(*args, key_buffer_size=K)),
+            exact=cuda_ms(lambda: tiled.bin_and_sort(*args)),
+            plain_static=cuda_ms(lambda: tiled.bin_and_sort_plain(*args, key_buffer_size=K),
+                                 repeats=10),
+            plain_exact=cuda_ms(lambda: tiled.bin_and_sort_plain(*args), repeats=10))
+        stats = device_busy(lambda: tiled.bin_and_sort(*args, key_buffer_size=K))
+        plain_stats = device_busy(lambda: tiled.bin_and_sort_plain(*args, key_buffer_size=K))
+        by_kernel = {key[:70]: round(ms, 4) for key, ms in sorted(
+            stats[4].items(), key=lambda kv: -kv[1])}
+        static_bytes = binning_bytes(n, K, tx * ty, True)
+        exact_bytes = binning_bytes(n, total, tx * ty, False)
+        bound = static_bytes / DRAM_BYTES_PER_S * 1e3
+        rows[label] = dict(times, n=n, K=K, total=total, bound=bound, device=stats[1],
+                           plain_device=plain_stats[1])
+        device_text = "not measured (the profiler saw no device time)"
+        if stats[1] > 0:
+            device_text = (f"{stats[1]:.4f} ms ({100 * bound / stats[1]:.1f}% of the bound) in "
+                           f"{stats[0]:.0f} kernels and copies, by kernel {by_kernel}; the "
+                           f"plain static binning {plain_stats[1]:.4f} ms in "
+                           f"{plain_stats[0]:.0f}")
+        log(f"phase 18 [{card}]: {label} (N={n}, {tx}x{ty} tiles, {total} entries, static "
+            f"buffer {K}, {entries} kept): outputs bit for bit the plain binning's, static and "
+            f"exact; bin_count {times['count']:.4f} ms, bin_sort {times['sort']:.4f} ms, "
+            f"static binning {times['static']:.4f} ms, exact {times['exact']:.4f} ms (with its "
+            f"sync); plain static {times['plain_static']:.4f} ms, plain exact "
+            f"{times['plain_exact']:.4f} ms; bound {bound:.4f} ms ({static_bytes / 1e6:.1f} "
+            f"MB static, {exact_bytes / 1e6:.1f} MB exact, at {DRAM_BYTES_PER_S / 1e12:.2f} "
+            f"TB/s), {100 * bound / times['static']:.1f}% by events; device time of the static "
+            f"binning under the profiler: {device_text}")
+        del model, pre, args, state
+        torch.cuda.empty_cache()
+    log(f"phase 18 [{card}]: {time.perf_counter() - t_phase:.1f} s")
+    big = rows["1.25M"]
+    source = "reduced_3dgs_torch/ops/rasterize/csrc/binning.cu"
+    return [{"name": name, "route": "cuda", "source": source, "replaces": None,
+             "launches": sum(launches_by_phase[name].values()),
+             "launches_by_phase": launches_by_phase[name], "max_abs_err": 0,
+             "ms": big[key], "plain_ms": big["plain_static"] if name == "bin_sort" else None,
+             "bound_ms": big["bound"], "bound_by": "bytes", "library_ms": None}
+            for name, key in (("bin_count", "count"), ("bin_sort", "sort"))]
+
+
 def card_name():
     from reduced_3dgs_torch.tools.convergence_proof import smi_line
     line = smi_line()
@@ -3738,7 +3845,7 @@ def run(tmp):
     dev = torch.device("cuda")
     wrappers = {"composite_fwd": composite_fwd, "composite_fwd_stats": composite_fwd_stats,
                 "composite_bwd": composite_bwd}
-    # Phases 6, 11, 14, 15 and 16 count the preprocess kernels too.
+    # Phases 6, 11, 14, 15 and 16 count the preprocess and binning kernels too.
     all_wrappers = with_preprocess(wrappers)
     # Phases 0-14 step one camera a call (their checks wrap trainer.step);
     # the subprocesses of phases 10-13 inherit it.
@@ -4234,6 +4341,9 @@ def run(tmp):
     # ---------------------------------------------------------------- phase 17
     preprocess_records = preprocess_phase(card, launches_by_phase)
 
+    # ---------------------------------------------------------------- phase 18
+    binning_records = binning_phase(card, launches_by_phase)
+
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "composite_fwd",
@@ -4274,7 +4384,7 @@ def run(tmp):
         "bound_ms": bwd_bound,
         "bound_by": bwd_bound_by,
         "library_ms": None,
-    }] + preprocess_records}))
+    }] + preprocess_records + binning_records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

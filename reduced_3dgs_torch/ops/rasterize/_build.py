@@ -57,11 +57,24 @@ ARGTYPES = {
     #                d_rots, d_shs, d_offset, d_colors, cam_partial, cam_out, stream)
     "preprocess_bwd": (_i, _i, _i, _i, *(_p,) * 8, *(_i,) * 5, *(_f,) * 5, _p,
                        ctypes.c_longlong, *(_p,) * 10),
+    # binning_scratch_bytes(n, k, bits, count_bytes*, sort_bytes*): host only
+    "binning_scratch_bytes": (_i, _i, _i, ctypes.POINTER(ctypes.c_longlong),
+                              ctypes.POINTER(ctypes.c_longlong)),
+    # binning_count(n, rect_min, rect_max, tiles_touched, depth_bits, tiles_y,
+    #               tile_row_offset, counts, offsets, keys, ids, scratch, scratch_bytes,
+    #               stream)
+    "binning_count": (_i, *(_p,) * 4, _i, _i, *(_p,) * 5, ctypes.c_longlong, _p),
+    # binning_sort(n, K, num_tiles, tiles_x, tiles_y, tile_row_offset, bits, tail_scratch,
+    #              rect_min, rect_max, counts, offsets, keys, keys_alt, ids, ids_alt, kept,
+    #              ends, tiles_a, tiles_b, gid_a, gid_b, scratch, scratch_bytes, s_tile,
+    #              s_gidx, valid, overflow, range_start, range_end, stream)
+    "binning_sort": (*(_i,) * 8, *(_p,) * 15, ctypes.c_longlong, *(_p,) * 7),
 }
 # The source (csrc/<name>.cu, and the library built from it) of each symbol.
 SOURCE_OF = {"composite_fwd": "composite_fwd", "composite_fwd_stats": "composite_fwd",
              "composite_bwd": "composite_bwd", "preprocess_fwd": "preprocess",
-             "preprocess_bwd": "preprocess"}
+             "preprocess_bwd": "preprocess", "binning_scratch_bytes": "binning",
+             "binning_count": "binning", "binning_sort": "binning"}
 SOURCES = tuple(sorted(set(SOURCE_OF.values())))
 # nvcc flags of one source beside NVCC_FLAGS. The preprocess rounds every
 # product and sum on its own, as the plain version does (no contraction into

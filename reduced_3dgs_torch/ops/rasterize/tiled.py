@@ -1,13 +1,19 @@
-"""Tiled renderer: binning, one sort, per-tile compositing (counterpart of
+"""Tiled renderer: binning and sort, per-tile compositing (counterpart of
 reduced_3dgs_tpu/ops/rasterize/tiled.py:29-96, 138-159, 174-370, 441-495
 and 582-618).
 
 The pipeline is the CUDA rasterizer's:
 
   1. ``preprocess`` gives each Gaussian a tile rectangle;
-  2. ``bin_and_sort`` emits one entry per (Gaussian, tile) pair in Gaussian
-     order and sorts them once by the int64 key (tile << 32 | depth bits),
-     stably;
+  2. ``bin_and_sort`` emits one entry per (Gaussian, tile) pair and orders
+     them by tile, then view depth, then Gaussian index. On the card the
+     CUDA kernels of ``binning_kernel`` (``csrc/binning.cu``) sort the
+     Gaussians by depth once, emit the entries in that order and sort them
+     stably on the tile id alone; on the CPU ``bin_and_sort_plain`` emits
+     them in Gaussian order and sorts them once by the int64 key
+     (tile << 32 | depth bits), stably. The two give the same dict, bit for
+     bit: no Gaussian has two entries in one tile, so both orders are
+     (tile, depth bits, Gaussian index);
   3. ``CompositeSorted`` gathers the entries' fields and composites each
      tile front to back (the CUDA kernel ``composite_fwd`` on the card); its
      backward replays each tile back to front (``composite_bwd``). A render
@@ -49,7 +55,7 @@ import torch
 
 from ... import config
 from ...utils import profiling
-from . import common
+from . import binning_kernel, common
 from .common import RenderSettings
 from .composite import (TAIL_SCRATCH, CompositeSorted, composite_fwd_stats,
                         gather_entries, pack_fields, sum_per_gaussian)
@@ -104,6 +110,26 @@ def bin_and_sort(rect_min: torch.Tensor, rect_max: torch.Tensor,
                  tiles_touched: torch.Tensor, depths: torch.Tensor,
                  tiles_x: int, tiles_y: int, tile_row_offset: int = 0,
                  key_buffer_size: Optional[int] = None) -> dict:
+    """Emit and sort the entries (``bin_and_sort_plain`` says what it
+    returns). CUDA tensors go to the kernels of ``binning_kernel``: the
+    counts and their scan, then (after the one host sync of an exact
+    buffer) a stable radix sort of the Gaussians by their depth bits, the
+    entries emitted in that order, a stable radix sort of the entries on
+    the bits of the tile id alone, and one pass that writes the outputs
+    and the tile ranges. No Gaussian has two entries in one tile, so the
+    order, ties included, is the plain version's: tile, depth bits,
+    Gaussian index. CPU tensors go to ``bin_and_sort_plain``."""
+    if rect_min.device.type == "cuda":
+        return binning_kernel.bin_and_sort(rect_min, rect_max, tiles_touched, depths, tiles_x,
+                                           tiles_y, tile_row_offset, key_buffer_size)
+    return bin_and_sort_plain(rect_min, rect_max, tiles_touched, depths, tiles_x, tiles_y,
+                              tile_row_offset, key_buffer_size)
+
+
+def bin_and_sort_plain(rect_min: torch.Tensor, rect_max: torch.Tensor,
+                       tiles_touched: torch.Tensor, depths: torch.Tensor,
+                       tiles_x: int, tiles_y: int, tile_row_offset: int = 0,
+                       key_buffer_size: Optional[int] = None) -> dict:
     """Emit and sort the (tile, Gaussian) entries of the ``tiles_y`` tile
     rows from the image's tile row ``tile_row_offset`` (the whole image by
     default): each rect's rows are clipped to the band (JAX tiled.py:198-212)

@@ -218,7 +218,7 @@ def flush_tallies():
 def counters() -> Dict[str, float]:
     """A copy of the counters, with the kernels' launch tallies."""
     # The kernels' modules register their wrappers when they are imported.
-    from ..ops.rasterize import composite, launches, preprocess_kernel  # noqa: F401
+    from ..ops.rasterize import binning_kernel, composite, launches, preprocess_kernel  # noqa: F401
     out = dict(_counters)
     for wrapper in launches.wrappers():
         module = wrapper.__module__.rsplit(".", 1)[-1]
