@@ -3025,7 +3025,7 @@ def window_phase(card, params_p, src, wrappers, tmp, dense_config):
     from reduced_3dgs_torch.combinations import (
         SHCullingOpacityResetFullReducedDensificationTrainer)
     from reduced_3dgs_torch.dataset.dataset import prepare_dataset
-    from reduced_3dgs_torch.ops.rasterize.sweep import pool_size
+    from reduced_3dgs_torch.ops.rasterize.launches import pool_size
     from reduced_3dgs_torch.shculling import (VariableSHGaussianModel,
                                               VariableSHGsplat2DGSGaussianModel)
     from reduced_3dgs_torch.train import training

@@ -36,7 +36,7 @@ import torch
 
 from ...utils import profiling
 from .composite import TAIL_SCRATCH
-from .launches import count_launch, counted
+from .launches import counted, launch
 
 # Every work buffer starts on this many bytes (CUB's loads are vectorised).
 _ALIGN = 256
@@ -89,10 +89,6 @@ def _workspace(device, sizes):
     return ws, [base + s for s in starts]
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 class Counts(NamedTuple):
     """``bin_count``'s result: the inputs as launched, ``offsets`` [n + 1]
     int64 (``offsets[n]`` the total) and the work buffer ``bin_sort`` goes
@@ -112,8 +108,6 @@ def bin_count(rect_min, rect_max, tiles_touched, depths, tiles_y: int,
     ``tile_row_offset``, their scan in Gaussian order and the depth sort's
     input. CUDA tensors only; adds one to ``bin_count.launches``."""
     _check(rect_min, rect_max, tiles_touched, depths)
-    from ._build import load_library
-    lib = load_library("binning")
     device = rect_min.device
     n = rect_min.shape[0]
     rect_min, rect_max, tiles_touched = (t.contiguous() for t in (rect_min, rect_max,
@@ -123,14 +117,8 @@ def bin_count(rect_min, rect_max, tiles_touched, depths, tiles_y: int,
     offsets = torch.empty(n + 1, dtype=torch.int64, device=device)
     work, parts = _workspace(device, [8 * n] + [4 * n] * 6 + [count_bytes])
     counts, keys, ids, scratch = parts[0], parts[1], parts[2], parts[7]
-    with torch.cuda.device(device):
-        err = lib.binning_count(n, rect_min.data_ptr(), rect_max.data_ptr(),
-                                tiles_touched.data_ptr(), depth_bits.data_ptr(), tiles_y,
-                                tile_row_offset, counts, offsets.data_ptr(), keys, ids,
-                                scratch, count_bytes, _stream(device))
-    if err != 0:
-        raise RuntimeError(f"bin_count kernel launch failed: CUDA error {err}")
-    count_launch(bin_count)
+    launch(bin_count, "binning_count", device, n, rect_min, rect_max, tiles_touched, depth_bits,
+           tiles_y, tile_row_offset, counts, offsets, keys, ids, scratch, count_bytes)
     return Counts(rect_min, rect_max, offsets, work, parts[:7])
 
 
@@ -144,8 +132,6 @@ def bin_sort(counted_: Counts, K: int, tiles_x: int, tiles_y: int, tile_row_offs
     Adds one to ``bin_sort.launches``."""
     if not 0 <= K < 2 ** 31:
         raise ValueError(f"the key buffer takes 0 to 2**31 - 1 entries, not {K}")
-    from ._build import load_library
-    lib = load_library("binning")
     rect_min, rect_max, offsets = counted_.rect_min, counted_.rect_max, counted_.offsets
     device = rect_min.device
     n = rect_min.shape[0]
@@ -161,18 +147,10 @@ def bin_sort(counted_: Counts, K: int, tiles_x: int, tiles_y: int, tile_row_offs
     valid = torch.empty(K, dtype=torch.bool, device=device) if static else None
     overflow = torch.empty((), dtype=torch.bool, device=device) if static else None
     counts, keys, ids, keys_alt, ids_alt, kept, ends = counted_.parts
-    with torch.cuda.device(device):
-        err = lib.binning_sort(
-            n, K, num_tiles, tiles_x, tiles_y, tile_row_offset, bits, TAIL_SCRATCH,
-            rect_min.data_ptr(), rect_max.data_ptr(), counts, offsets.data_ptr(), keys,
-            keys_alt, ids, ids_alt, kept, ends, tiles_a, tiles_b, gid_a, gid_b, scratch,
-            sort_bytes, s_tile.data_ptr(), s_gidx.data_ptr(),
-            None if valid is None else valid.data_ptr(),
-            None if overflow is None else overflow.data_ptr(), range_start.data_ptr(),
-            range_end.data_ptr(), _stream(device))
-    if err != 0:
-        raise RuntimeError(f"bin_sort kernel launch failed: CUDA error {err}")
-    count_launch(bin_sort)
+    launch(bin_sort, "binning_sort", device, n, K, num_tiles, tiles_x, tiles_y, tile_row_offset,
+           bits, TAIL_SCRATCH, rect_min, rect_max, counts, offsets, keys, keys_alt, ids,
+           ids_alt, kept, ends, tiles_a, tiles_b, gid_a, gid_b, scratch, sort_bytes, s_tile,
+           s_gidx, valid, overflow, range_start, range_end)
     out = dict(s_tile=s_tile, s_gidx=s_gidx, range_start=range_start, range_end=range_end)
     if static:
         out.update(valid=valid, overflow=overflow)

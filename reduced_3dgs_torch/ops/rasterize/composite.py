@@ -51,7 +51,7 @@ from __future__ import annotations
 import torch
 
 from ... import config
-from .launches import count_launch, counted
+from .launches import counted, launch
 
 N_FIELDS = 10
 # Rows of the statistics compositor's per-entry output.
@@ -239,8 +239,6 @@ def _launch_fwd(wrapper, e, range_start, range_end, tiles_x, tile_row_offset):
     for nm, t in (("e", e), ("range_start", range_start), ("range_end", range_end)):
         if not t.is_contiguous():
             raise ValueError(f"{nm} must be contiguous")
-    from ._build import load_library
-    lib = load_library("composite_fwd")
     K = e.shape[1]
     T = range_start.shape[0]
     color4 = torch.empty((T, config.BLOCK_SIZE, 4), dtype=torch.float32, device=e.device)
@@ -250,16 +248,9 @@ def _launch_fwd(wrapper, e, range_start, range_end, tiles_x, tile_row_offset):
     if symbol == "composite_fwd_stats":
         outs.append(torch.empty((N_STATS, K), dtype=torch.float32, device=e.device))
     if T > 0:
-        with torch.cuda.device(e.device):
-            stream = torch.cuda.current_stream(e.device).cuda_stream
-            order = torch.empty(T, dtype=torch.int32, device=e.device)  # filled by the launch
-            err = getattr(lib, symbol)(
-                e.data_ptr(), K, range_start.data_ptr(), range_end.data_ptr(),
-                order.data_ptr(), T, tiles_x, tile_row_offset,
-                *(t.data_ptr() for t in outs), stream)
-        if err != 0:
-            raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
-        count_launch(wrapper)
+        order = torch.empty(T, dtype=torch.int32, device=e.device)  # filled by the launch
+        launch(wrapper, symbol, e.device, e, K, range_start, range_end, order, T, tiles_x,
+               tile_row_offset, *outs)
     return tuple(outs)
 
 
@@ -358,22 +349,12 @@ def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.T
     for nm, t in args:
         if not t.is_contiguous():
             raise ValueError(f"{nm} must be contiguous")
-    from ._build import load_library
-    lib = load_library("composite_bwd")
     K = e.shape[1]
     grads = torch.empty((N_FIELDS, K), dtype=torch.float32, device=e.device)
     if T > 0:
-        with torch.cuda.device(e.device):
-            stream = torch.cuda.current_stream(e.device).cuda_stream
-            order = torch.empty(T, dtype=torch.int32, device=e.device)  # filled by the launch
-            err = lib.composite_bwd(
-                e.data_ptr(), K, range_start.data_ptr(), range_end.data_ptr(),
-                order.data_ptr(), T, tiles_x, tile_row_offset, final_t.data_ptr(),
-                latch.data_ptr(),
-                g_color4.data_ptr(), g_t.data_ptr(), grads.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
-        count_launch(composite_bwd)
+        order = torch.empty(T, dtype=torch.int32, device=e.device)  # filled by the launch
+        launch(composite_bwd, "composite_bwd", e.device, e, K, range_start, range_end, order,
+               T, tiles_x, tile_row_offset, final_t, latch, g_color4, g_t, grads)
     return grads
 
 

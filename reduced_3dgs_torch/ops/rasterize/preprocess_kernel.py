@@ -31,14 +31,12 @@ Each wrapper counts its launches in ``.launches`` as the compositors' do
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from .. import projection as proj
 from .. import sh as sh_ops
 from . import common, composite
-from .launches import count_launch, counted
+from .launches import counted, launch
 
 N_FIELDS = composite.N_FIELDS
 # The camera gradient's floats: viewmatrix [16], projmatrix [16], campos [3].
@@ -103,17 +101,9 @@ def _check(means3d, opacities_raw, scales, rotations, shs, mean2d_offset_ndc,
         raise ValueError("rotations must start on 16 bytes (one 128-bit load a row)")
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
 def _aligned(shs) -> int:
     """Whether every SH row starts on 16 bytes (float4 loads and stores)."""
     return int(shs is not None and shs.data_ptr() % 16 == 0 and shs.shape[1] * 3 % 4 == 0)
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 @counted
@@ -127,8 +117,6 @@ def preprocess_fwd(means3d, opacities_raw, scales, rotations, shs, mean2d_offset
            viewmatrix, projmatrix, campos, degree)
     if means3d.device.type != "cuda":
         raise ValueError(f"preprocess_fwd runs on cuda tensors, not {means3d.device}")
-    from ._build import load_library
-    lib = load_library("preprocess")
     n = means3d.shape[0]
     device = means3d.device
     fields = torch.empty((N_FIELDS, n), dtype=torch.float32, device=device)
@@ -137,19 +125,12 @@ def preprocess_fwd(means3d, opacities_raw, scales, rotations, shs, mean2d_offset
     rect_max = torch.empty((n, 2), dtype=torch.int32, device=device)
     tiles = torch.empty(n, dtype=torch.int32, device=device)
     if n > 0:
-        with torch.cuda.device(device):
-            err = lib.preprocess_fwd(
-                n, degree, 0 if shs is None or degree < 0 else shs.shape[1] * 3,
-                _aligned(shs) if degree >= 0 else 0,
-                means3d.data_ptr(), opacities_raw.data_ptr(), scales.data_ptr(),
-                rotations.data_ptr(), _ptr(shs) if degree >= 0 else None,
-                _ptr(colors_precomp), _ptr(mean2d_offset_ndc), viewmatrix.data_ptr(),
-                projmatrix.data_ptr(), campos.data_ptr(), campos.stride(0),
-                *_scalars(settings), fields.data_ptr(), radii.data_ptr(), rect_min.data_ptr(),
-                rect_max.data_ptr(), tiles.data_ptr(), _stream(device))
-        if err != 0:
-            raise RuntimeError(f"preprocess_fwd kernel launch failed: CUDA error {err}")
-        count_launch(preprocess_fwd)
+        launch(preprocess_fwd, "preprocess_fwd", device, n, degree,
+               0 if shs is None or degree < 0 else shs.shape[1] * 3,
+               _aligned(shs) if degree >= 0 else 0, means3d, opacities_raw, scales, rotations,
+               shs if degree >= 0 else None, colors_precomp, mean2d_offset_ndc, viewmatrix,
+               projmatrix, campos, campos.stride(0), *_scalars(settings), fields, radii,
+               rect_min, rect_max, tiles)
     return fields, radii, rect_min, rect_max, tiles
 
 
@@ -172,8 +153,6 @@ def preprocess_bwd(g_fields, means3d, opacities_raw, scales, rotations, shs, col
            viewmatrix, projmatrix, campos, degree)
     if means3d.device.type != "cuda":
         raise ValueError(f"preprocess_bwd runs on cuda tensors, not {means3d.device}")
-    from ._build import load_library
-    lib = load_library("preprocess")
     device = means3d.device
 
     def empty_if(i, like):
@@ -191,18 +170,11 @@ def preprocess_bwd(g_fields, means3d, opacities_raw, scales, rotations, shs, col
                           device=device) if camera else None
     cam = torch.empty(N_CAMERA, dtype=torch.float32, device=device) if camera else None
     if n > 0:
-        with torch.cuda.device(device):
-            err = lib.preprocess_bwd(
-                n, degree, 0 if shs is None or degree < 0 else shs.shape[1] * 3,
-                _aligned(shs) if degree >= 0 else 0,
-                means3d.data_ptr(), opacities_raw.data_ptr(), scales.data_ptr(),
-                rotations.data_ptr(), _ptr(shs) if degree >= 0 else None,
-                viewmatrix.data_ptr(), projmatrix.data_ptr(), campos.data_ptr(),
-                campos.stride(0), *_scalars(settings), g_fields.data_ptr(), g_fields.stride(0),
-                *(_ptr(g) for g in grads[:7]), _ptr(partial), _ptr(cam), _stream(device))
-        if err != 0:
-            raise RuntimeError(f"preprocess_bwd kernel launch failed: CUDA error {err}")
-        count_launch(preprocess_bwd)
+        launch(preprocess_bwd, "preprocess_bwd", device, n, degree,
+               0 if shs is None or degree < 0 else shs.shape[1] * 3,
+               _aligned(shs) if degree >= 0 else 0, means3d, opacities_raw, scales, rotations,
+               shs if degree >= 0 else None, viewmatrix, projmatrix, campos, campos.stride(0),
+               *_scalars(settings), g_fields, g_fields.stride(0), *grads[:7], partial, cam)
     elif camera:
         cam.zero_()
     if camera:

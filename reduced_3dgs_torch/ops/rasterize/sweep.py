@@ -1,7 +1,6 @@
 """Event sweeps through the static key buffer (the counterpart, on the card,
 of the JAX package's one-program sweeps, reduced_3dgs_tpu/importance/
-trainer.py:88-140 and ops/shculling_stats.py:105-155), and the capture
-recipe they share with the training step's graph (``capture_graph``).
+trainer.py:88-140 and ops/shculling_stats.py:105-155).
 
 ``static_sweep`` runs a sweep: every view renders through a static key
 buffer of K entries, a per-view body adds into accumulators on the device
@@ -10,13 +9,14 @@ pass decides whether K doubles, up to N x tiles, and the pass runs again,
 as JAX's ``_sweep_counts`` does. The caller gives the starting K (else
 ``start_key_buffer``) and ``on_regrow(K)``, which hands a regrown K to
 whoever sizes the step's buffer. On the card each pass is one
-``SweepGraph``: the body runs eagerly for the first view on a side stream
-(its contribution counts), is captured, and is replayed for every other
-view with the view's matrices copied into the graph's fixed inputs. The
-graph and its memory pool are dropped when the pass ends: every training
-sweep renders parameters that the event before it replaced, so a kept graph
-would never replay again. On the CPU the same fixed-shape body runs once
-per view. The body makes no host sync and keeps no record per view.
+``SweepGraph`` (a ``launches.CameraGraph``): the body runs eagerly for the
+first view on a side stream (its contribution counts), is captured, and is
+replayed for every other view with the view's matrices copied into the
+graph's fixed inputs. The graph and its memory pool are dropped when the
+pass ends: every training sweep renders parameters that the event before it
+replaced, so a kept graph would never replay again. On the CPU the same
+fixed-shape body runs once per view. The body makes no host sync and keeps
+no record per view.
 
 Which sweeps run so (``sweeps_statically``): more than one view, all of
 one image size (``dataset.camera.stackable``) and one FoV, of a model whose
@@ -39,58 +39,15 @@ A capture that fails raises: there is no eager fallback.
 """
 from __future__ import annotations
 
-import dataclasses
-import time
-
 import torch
 
 from ...dataset import camera as camera_mod
 from ...utils import profiling
-from . import launches
+from .launches import CameraGraph
 from .tiled import bucket_capacity, default_key_buffer_size, max_key_buffer
 
 # The camera fields a sweep's body reads that hold tensors.
 INPUT_FIELDS = ("world_view_transform", "full_proj_transform", "camera_center", "bg_color")
-
-
-def capture_graph(eager, captured, device):
-    """PyTorch's recipe for capturing work: ``eager()`` runs once on a side
-    stream, then ``captured()`` is captured into a new ``CUDAGraph``
-    (``torch.cuda.graph`` empties the allocator's cache first), with the
-    kernel launches the capture records. Returns (graph, eager()'s
-    result, captured()'s result, the launch tally, the capture's wall
-    seconds, the bytes of the card's memory the graph's pool holds after
-    it). The pool's size walks the allocator's whole snapshot, so it is
-    taken only while a profiler records, and is None otherwise."""
-    with profiling.span("capture"):
-        main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            first = eager()
-        main.wait_stream(side)
-        if torch.is_tensor(first):
-            first.record_stream(main)
-        before = dict(launches.captured_launches)
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = captured()
-        torch.cuda.synchronize(device)
-        capture_s = time.perf_counter() - t0
-    profiling.count("graph.captures")
-    profiling.count("graph.capture_ms", capture_s * 1e3)
-    tally = {name: n - before.get(name, 0) for name, n in launches.captured_launches.items()}
-    pool_bytes = pool_size(graph) if profiling.recording() else None
-    return graph, first, out, tally, capture_s, pool_bytes
-
-
-def pool_size(graph) -> int:
-    """The bytes of the card's memory that ``graph``'s private pool holds,
-    from a walk of the allocator's snapshot."""
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg["segment_pool_id"]) == tuple(graph.pool()))
 
 
 def _fov(camera) -> tuple:
@@ -113,36 +70,27 @@ def start_key_buffer(n: int, camera) -> int:
                                    -(-camera.image_height // 16))
 
 
-class SweepGraph:
+class SweepGraph(CameraGraph):
     """A sweep pass's per-view body captured on its first view ``camera``.
     ``body(model, camera)`` renders through the static key buffer, adds
     into its accumulators in place and returns the render's 0-d overflow
     flag; it runs eagerly for ``camera`` (its contribution counts) and is
     then captured. ``replay(camera)`` adds another view of the same image
-    size and FoV. ``overflow`` is the OR of the views' flags so far;
-    ``capture_s`` the capture's wall seconds (the eager view excluded) and
-    ``pool_bytes`` the size of the graph's memory pool (None unless a
-    profiler recorded the capture)."""
+    size and FoV. ``overflow`` is the OR of the views' flags so far."""
 
     def __init__(self, model, body, camera):
         self.overflow = torch.zeros((), dtype=torch.bool, device=model._xyz.device)
-        self.camera = dataclasses.replace(camera, **{f: getattr(camera, f).detach().clone()
-                                                     for f in INPUT_FIELDS})
 
-        def view():
-            self.overflow |= body(model, self.camera)
+        def view(cam):
+            self.overflow |= body(model, cam)
 
-        self.graph, _, _, self.tally, self.capture_s, self.pool_bytes = capture_graph(
-            view, view, self.overflow.device)
+        super().__init__(camera, INPUT_FIELDS, view, view, self.overflow.device)
 
     def replay(self, camera):
         if _fov(camera) != _fov(self.camera):
             raise ValueError(f"a sweep graph captured at {_fov(self.camera)} (height, width, "
                              f"FoVx, FoVy) cannot replay a view at {_fov(camera)}")
-        for f in INPUT_FIELDS:
-            getattr(self.camera, f).copy_(getattr(camera, f))
-        self.graph.replay()
-        launches.add_replayed_launches(self.tally)
+        super().replay(camera)
 
 
 def _graph_pass(model, cameras, body) -> bool:

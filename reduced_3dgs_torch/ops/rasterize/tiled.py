@@ -31,7 +31,7 @@ the tail and lie in no tile's range) and scratch Gaussian ids from N
 (``composite.TAIL_SCRATCH``); when
 the total exceeds K, the entries past K in emission order are dropped, and
 ``overflow`` says so. The training step and the event sweeps render so,
-which lets them be captured as CUDA graphs (``trainer/step_graph.py``); the
+which lets them be captured as CUDA graphs (``trainer.base.StepGraph``); the
 trainer sizes K with ``default_key_buffer_size`` and regrows or shrinks it
 from the overflow flags and entry counts it reads every 64 steps, and a
 sweep doubles it after a pass that overflowed.

@@ -19,11 +19,11 @@ snapshot a buffer that keeps overflowing, ``utils/debug.py``).
 
 ``update_many`` runs a window of steps (``AbstractTrainer.step_many``).
 On the CPU it runs the same fixed-shape step once per camera. On the card
-the step is captured once as a CUDA graph (``trainer/step_graph.py``),
-after one eager step on a side stream, and the graph is replayed once per
-camera, with the camera's matrices and ground truth copied into its fixed
-inputs first. One graph lives at a time: it is captured again whenever N,
-the key buffer, the image size, the FoV, the active SH degree, the loss's
+the step is captured once as a CUDA graph (``StepGraph``), after one eager
+step on a side stream, and the graph is replayed once per camera, with the
+camera's matrices and ground truth copied into its fixed inputs first.
+One graph lives at a time: it is captured again whenever N, the key
+buffer, the image size, the FoV, the active SH degree, the loss's
 composition, the learning rates or any state tensor changes (an event
 replaces the state's tensors). Windows of one step, trainable cameras and
 cameras that differ in size or in the ground truth they carry take single
@@ -45,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from ..ops.rasterize.launches import CameraGraph
 from ..ops.rasterize.tiled import bucket_capacity, default_key_buffer_size, max_key_buffer
 from ..ops.ssim import ssim
 from ..utils import profiling
@@ -52,7 +53,6 @@ from ..utils.math import l1_loss
 from ..utils.schedule import get_expon_lr_func
 from .abc import AbstractTrainer
 from .optimizer import AdamState, adam_init, adam_update
-from .step_graph import StepGraph
 
 # Steps between two reads of the key buffer's overflow flags (JAX
 # base.py:424), and the starting buffer's entries per Gaussian of capacity
@@ -78,6 +78,34 @@ def window_signature(camera) -> tuple:
     return (camera.image_height, camera.image_width, camera.FoVx, camera.FoVy,
             camera.ground_truth_image is None, camera.ground_truth_image_mask is None,
             camera.ground_truth_depth is None)
+
+
+# The camera fields a step reads that hold tensors.
+STEP_INPUT_FIELDS = ("world_view_transform", "full_proj_transform", "camera_center",
+                     "bg_color", "ground_truth_image", "ground_truth_image_mask",
+                     "ground_truth_depth")
+
+
+class StepGraph(CameraGraph):
+    """A window's step captured on ``camera`` (the counterpart of the JAX
+    engine's k steps as one XLA program, JAX base.py:223-362): the
+    parameters' gradients are dropped, the step runs eagerly (``first`` is
+    its record, the window's first step's) and is captured with its
+    gradients left in the graph's fixed tensors. ``key`` is the
+    ``graph_key`` it holds fixed; ``replay(camera)`` returns a copy of the
+    replayed step's record."""
+
+    def __init__(self, engine, outer, camera, key):
+        self.key = key
+        for p in engine.model.param_dict().values():
+            p.grad = None
+        super().__init__(camera, STEP_INPUT_FIELDS, lambda cam: engine.window_step(outer, cam),
+                         lambda cam: engine.window_step(outer, cam, keep_grads=True),
+                         engine.model._xyz.device)
+
+    def replay(self, camera) -> torch.Tensor:
+        super().replay(camera)
+        return self.out.clone()
 
 
 class BaseTrainer(AbstractTrainer):
@@ -427,8 +455,8 @@ class BaseTrainer(AbstractTrainer):
             key = self.graph_key(outer, cameras[0])
             if self._graph is None or self._graph.key != key:
                 self._graph = None          # frees the old graph's pool first
-                self._graph = StepGraph.capture(self, outer, cameras[0], key)
-                records = [self._graph.first_record]
+                self._graph = StepGraph(self, outer, cameras[0], key)
+                records = [self._graph.first]
             else:
                 records = [self._graph.replay(cameras[0])]
             records += [self._graph.replay(c) for c in cameras[1:]]

@@ -37,7 +37,7 @@ The program's spans:
                            camera, render and copy to the host
   r3dgs.encode             ``ViewerApp.render_frame``'s PNG encode
   r3dgs.sync.<site>        a deliberate read of the card by the host (below)
-  r3dgs.capture            ``ops.rasterize.sweep.capture_graph``: a CUDA graph
+  r3dgs.capture            ``ops.rasterize.launches.capture_graph``: a CUDA graph
                            captured (the step's or a sweep pass's)
   r3dgs.sweep_pass         ``ops.rasterize.sweep.static_sweep``: one pass over
                            the views through the static key buffer

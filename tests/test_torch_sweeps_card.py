@@ -1,19 +1,21 @@
 """The one-program event sweeps on the card: the sweep graphs against the
 eager exact per-view loop (chip_smoke's phase 16 (b) bar), and a copy of
-the sweep graph whose replays do not copy the camera's inputs against the
-same bar.
+the captured graphs' shared replay (``launches.CameraGraph.replay``, the
+sweep graph's and the training step's) that does not copy the camera's
+inputs against the same bar.
 
 On the card the sweeps must pass ``chip_smoke.compare_sweeps`` on the
 200k-Gaussian bench scene at 544x976 over four views of one FoV, as sweep
 graphs, and over four views of two FoVs, through the per-view loop with no
-graph captured; the faulty copy must fail it on the views of one FoV. Run
+graph captured; with the faulty replay they must fail it on the views of
+one FoV. Run
 there from the repository root with
 
     python -m pytest --noconftest -m cuda -s tests/test_torch_sweeps_card.py
 
 (``--noconftest`` because the suite's conftest imports JAX, which the port
 does not need). Without a card those tests skip; the check that the fault
-still applies to the sweep graph's source runs everywhere.
+still applies to the shared replay's source runs everywhere.
 """
 import inspect
 import textwrap
@@ -22,7 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from reduced_3dgs_torch.ops.rasterize import sweep  # noqa: E402
+from reduced_3dgs_torch.ops.rasterize import launches, sweep  # noqa: E402
 
 # The fault: a replay leaves the graph's fixed camera inputs as they are, so
 # every replay renders the view its graph was captured on.
@@ -30,15 +32,17 @@ FAULT = ("getattr(self.camera, f).copy_(getattr(camera, f))", "pass")
 
 
 def _faulty_replay():
-    src = textwrap.dedent(inspect.getsource(sweep.SweepGraph.replay))
-    assert src.count(FAULT[0]) == 1, f"{FAULT[0]!r} is not in SweepGraph.replay exactly once"
-    namespace = dict(vars(sweep))
-    exec(compile(src.replace(*FAULT), sweep.__file__, "exec"), namespace)
+    src = textwrap.dedent(inspect.getsource(launches.CameraGraph.replay))
+    assert src.count(FAULT[0]) == 1, f"{FAULT[0]!r} is not in CameraGraph.replay exactly once"
+    namespace = dict(vars(launches))
+    exec(compile(src.replace(*FAULT), launches.__file__, "exec"), namespace)
     return namespace["replay"]
 
 
 def test_fault_applies_to_the_sweep_graph():
-    """The fault's text is in ``SweepGraph.replay`` exactly once."""
+    """The fault's text is in ``CameraGraph.replay``, which the sweep graph
+    replays through, exactly once."""
+    assert sweep.SweepGraph.__mro__[1] is launches.CameraGraph
     _faulty_replay()
 
 
@@ -93,6 +97,6 @@ def test_graph_sweeps_pass_the_bar(scenes, views, graphs):
 def test_replays_without_the_camera_fail_the_bar(scenes, monkeypatch):
     import chip_smoke as cs
     model, cams = scenes
-    monkeypatch.setattr(sweep.SweepGraph, "replay", _faulty_replay())
+    monkeypatch.setattr(launches.CameraGraph, "replay", _faulty_replay())
     with pytest.raises(AssertionError):
         cs.compare_sweeps("card test, faulty", model, cams["one FoV"], "one FoV")

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from reduced_3dgs_torch import train as ttrain  # noqa: E402
 from reduced_3dgs_torch import viewer as tviewer  # noqa: E402
+from reduced_3dgs_torch.ops.rasterize import launches as tlaunches  # noqa: E402
 from reduced_3dgs_torch.ops.rasterize import sweep as tsweep  # noqa: E402
 from reduced_3dgs_torch.shculling import SHCullingTrainerWrapper  # noqa: E402
 from reduced_3dgs_torch.trainer import BaseTrainer, Trainer  # noqa: E402
@@ -265,12 +266,12 @@ def test_capture_sizes_its_pool_only_under_a_profiler():
     def body():
         return x * 2.0
 
-    graph, _, out, _, capture_s, pool = tsweep.capture_graph(body, body, x.device)
+    graph, _, out, _, capture_s, pool = tlaunches.capture_graph(body, body, x.device)
     graph.replay()
     assert pool is None and float(out[0]) == 2.0
     counted = profiling.counters()
     assert counted["graph.captures"] == 1
     assert counted["graph.capture_ms"] == pytest.approx(capture_s * 1e3)
-    (_, _, _, _, _, pool), events = profiled(lambda: tsweep.capture_graph(body, body, x.device))
+    (_, _, _, _, _, pool), events = profiled(lambda: tlaunches.capture_graph(body, body, x.device))
     assert pool >= x.numel() * 4
     assert [e.name for e in events].count("r3dgs.capture") == 1
