@@ -14,8 +14,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            the bench scene, an opaque scene and a fully culled scene: the
            forward compositor, the statistics compositor (also against the
            forward compositor, bit for bit), the backward compositor
-           (cotangents from a real loss and random ones), and the SSIM
-           gradient against float64 and against float32 on the CPU
+           (cotangents from a real loss and random ones; its per-Gaussian
+           form also against its per-entry form summed by index_add_), and
+           the SSIM gradient against float64 and against float32 on the CPU
   phase 4  the render entry point (reduced_3dgs_torch.render.main) on a
            4-view COLMAP dataset of the bench scene, with the kernels'
            launch counts read around it
@@ -653,8 +654,12 @@ def loss_cotangents(model, camera, gt):
 
 def compare_backward(name, case, g_color4, g_t):
     """Backward kernel against plain version on the forward kernel's own
-    buffers, per field, per entry [10,K] and per Gaussian [10,N]."""
-    from reduced_3dgs_torch.ops.rasterize.composite import composite_bwd, composite_bwd_plain
+    buffers, per field, per entry [10,K] and per Gaussian [10,N]; and the
+    kernel's per-Gaussian form (given the entries' Gaussian ids) against its
+    per-entry form summed by index_add_ ("fused")."""
+    from reduced_3dgs_torch.ops.rasterize.composite import (composite_bwd,
+                                                            composite_bwd_per_gaussian,
+                                                            composite_bwd_plain)
     e, rs, re, tiles_x = case["inputs"]
     args = (e, rs, re, tiles_x, case["final_t"], case["latch"], g_color4, g_t)
     kg = composite_bwd(*args)
@@ -662,11 +667,13 @@ def compare_backward(name, case, g_color4, g_t):
     pg = composite_bwd_plain(*args)
     torch.cuda.synchronize()
     n = case["n"]
+    fused = composite_bwd_per_gaussian(e, case["s_gidx"], n, *args[1:])
     kn = torch.zeros((10, n), device=e.device).index_add_(1, case["s_gidx"], kg)
     pn = torch.zeros((10, n), device=e.device).index_add_(1, case["s_gidx"], pg)
     worst, max_abs = 0.0, 0.0
     parts = []
-    for level, (kv, pv) in (("entry", (kg, pg)), ("gaussian", (kn, pn))):
+    for level, (kv, pv) in (("entry", (kg, pg)), ("gaussian", (kn, pn)),
+                            ("fused", (fused, kn))):
         for f, fname in enumerate(FIELDS):
             if kv.shape[1] == 0:
                 d = scale = 0.0
@@ -680,11 +687,12 @@ def compare_backward(name, case, g_color4, g_t):
             if level == "entry":
                 max_abs = max(max_abs, d)
             parts.append(f"{level}/{fname} {d:.2e}/{scale:.2e}")
-    log(f"phase 3 [{name}]: composite_bwd vs plain, max|d|/max|plain| per field: "
+    log(f"phase 3 [{name}]: composite_bwd vs plain (fused: the per-Gaussian form vs the "
+        f"per-entry form summed by index_add_), max|d|/max|plain| per field: "
         + ", ".join(parts) + f"; worst ratio {worst:.3e} (bar {TOL_BWD_REL})")
     if worst > TOL_BWD_REL:
         raise AssertionError(f"{name}: composite_bwd disagrees with its plain version")
-    return dict(max_abs_err=max_abs, grads=kg, plain=pg)
+    return dict(max_abs_err=max_abs, grads=kg, plain=pg, per_gaussian=fused)
 
 
 def backward_pairs(e, range_start, range_end, tiles_x, latch):
@@ -3935,7 +3943,7 @@ def run(tmp):
             raise AssertionError("culled scene: expected no entries")
         culled_dfields = torch.zeros((10, culled["n"]), device=dev).index_add_(
             1, culled["s_gidx"], bwd_culled["grads"])
-        if culled_dfields.abs().max() != 0:
+        if culled_dfields.abs().max() != 0 or bwd_culled["per_gaussian"].abs().max() != 0:
             raise AssertionError("culled scene: expected all-zero gradients")
         log(f"phase 3 [culled]: per-Gaussian gradients all zero over {culled['n']} Gaussians")
         bwd_max_abs_err = max(b["max_abs_err"] for b in (bwd_real, bwd_rand, bwd_opaque,

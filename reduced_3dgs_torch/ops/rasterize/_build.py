@@ -43,9 +43,9 @@ ARGTYPES = {
     #                     stream)
     "composite_fwd_stats": (_p, _i, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _p),
     # composite_bwd(e, K, range_start, range_end, tile_order, num_tiles,
-    #               tiles_x, tile_row_offset, final_t, latch, g_color4, g_t, grads,
-    #               stream)
-    "composite_bwd": (_p, _i, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _p, _p),
+    #               tiles_x, tile_row_offset, final_t, latch, g_color4, g_t, ids,
+    #               n_out, grads, stream)
+    "composite_bwd": (_p, _i, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p),
     # preprocess_fwd(n, degree, sh_stride, aligned, means, opac, scales, rots, shs,
     #                colors, offset, view, proj, campos, c_stride, H, W, tiles_x, tiles_y,
     #                fx, fy, lim_x, lim_y, modifier, fields, radii, rect_min, rect_max,

@@ -12,7 +12,10 @@ is the same compositor with per-entry statistics (the Pallas kernel's
 ``composite_bwd`` is the backward compositor, likewise: the kernel
 ``csrc/composite_bwd.cu`` (which replaces ``_bwd_kernel``) on CUDA,
 ``composite_bwd_plain`` (autograd through a recomputed forward) on the CPU.
-There is no fallback from one to the other.
+``composite_bwd_per_gaussian`` is its gradient summed per Gaussian: on CUDA
+the same kernel, which adds each entry's sums straight into its Gaussian's
+column; on the CPU the plain version and ``sum_per_gaussian``. There is no
+fallback from one to the other.
 
 Entry fields are packed as rows of a [10, K] float32 matrix, in the JAX
 kernel's order: 0 x, 1 y, 2 conic A, 3 conic B, 4 conic C, 5 opacity,
@@ -35,11 +38,12 @@ colour 0, T 1 and latch range_end[t].
 
 A static key buffer (``tiled.bin_and_sort`` with ``key_buffer_size``) may
 end in a tail of entries that lie in no tile's range: the kernels never
-read them, B2 and B3 leave their per-entry outputs unwritten there, and the
-plain versions give them zeros. Their Gaussian ids are scratch ids at and
-past N, N + (position mod ``TAIL_SCRATCH``): ``gather_entries`` gathers
-them from zero columns and ``sum_per_gaussian`` sums them into scratch rows
-that it drops, so that whatever the buffer holds there reaches no Gaussian.
+read them or their ids, B2 leaves its per-entry output unwritten there, and
+B3's per-entry form and the plain versions give them zeros. Their Gaussian
+ids are scratch ids at and past N, N + (position mod ``TAIL_SCRATCH``):
+``gather_entries`` gathers them from zero columns and ``sum_per_gaussian``
+sums them into scratch rows that it drops, so that whatever the buffer
+holds there reaches no Gaussian.
 (Spread over that many rows, the tail's float atomics do not contend on
 one address, which made the per-Gaussian sum tens of times slower on the
 card; PERF.md §6.)
@@ -314,20 +318,7 @@ def composite_bwd_plain(e: torch.Tensor, range_start: torch.Tensor,
     return all_grads
 
 
-@counted
-def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.Tensor,
-                  tiles_x: int, final_t: torch.Tensor, latch: torch.Tensor,
-                  g_color4: torch.Tensor, g_t: torch.Tensor,
-                  tile_row_offset: int = 0) -> torch.Tensor:
-    """Backward compositor: per-entry gradients [10, K], in sorted order, of
-    d(x, y, A, B, C, op, r, g, b, depth) for the cotangents g_color4
-    [T,256,4] and g_t [T,256,1], given the forward's final_T and latch, for
-    the band of tile rows from ``tile_row_offset`` (0: the whole image).
-
-    CPU tensors go to ``composite_bwd_plain``. CUDA tensors launch the CUDA
-    kernel and add one to ``composite_bwd.launches``; any other device
-    raises. The kernel sums each entry's per-pixel terms with shared-memory
-    float atomics, so the last bits of a gradient vary between runs."""
+def _check_bwd_inputs(e, range_start, range_end, final_t, latch, g_color4, g_t):
     _check_inputs(e, range_start, range_end)
     T = range_start.shape[0]
     for nm, t, width, dtype in (("final_t", final_t, 1, torch.float32),
@@ -339,23 +330,85 @@ def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.T
                              f"got {t.dtype} {tuple(t.shape)}")
         if t.device != e.device:
             raise ValueError(f"{nm} is on {t.device}, e on {e.device}")
+    if e.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"composite_bwd runs on cpu or cuda tensors, not {e.device}")
+    if e.device.type == "cuda":
+        args = (("e", e), ("range_start", range_start), ("range_end", range_end),
+                ("final_t", final_t), ("latch", latch), ("g_color4", g_color4), ("g_t", g_t))
+        for nm, t in args:
+            if not t.is_contiguous():
+                raise ValueError(f"{nm} must be contiguous")
+
+
+def _launch_bwd(e, range_start, range_end, tiles_x, final_t, latch, g_color4, g_t,
+                tile_row_offset, ids, n_out):
+    """Launch B3, which adds the gradient of the sorted entry at position i
+    into column ``ids[i]`` of a zeroed [10, n_out]; count the launch on
+    ``composite_bwd``. ``ids`` [K] int64 is read only inside the tiles'
+    ranges."""
+    grads = torch.zeros((N_FIELDS, n_out), dtype=torch.float32, device=e.device)
+    T = range_start.shape[0]
+    if T > 0:
+        order = torch.empty(T, dtype=torch.int32, device=e.device)  # filled by the launch
+        launch(composite_bwd, "composite_bwd", e.device, e, e.shape[1], range_start,
+               range_end, order, T, tiles_x, tile_row_offset, final_t, latch, g_color4, g_t,
+               ids, n_out, grads)
+    return grads
+
+
+@counted
+def composite_bwd(e: torch.Tensor, range_start: torch.Tensor, range_end: torch.Tensor,
+                  tiles_x: int, final_t: torch.Tensor, latch: torch.Tensor,
+                  g_color4: torch.Tensor, g_t: torch.Tensor,
+                  tile_row_offset: int = 0) -> torch.Tensor:
+    """Backward compositor: per-entry gradients [10, K], in sorted order, of
+    d(x, y, A, B, C, op, r, g, b, depth) for the cotangents g_color4
+    [T,256,4] and g_t [T,256,1], given the forward's final_T and latch, for
+    the band of tile rows from ``tile_row_offset`` (0: the whole image).
+    Entries at or after every pixel of their tile's latch, and a static
+    buffer's tail, get zeros.
+
+    CPU tensors go to ``composite_bwd_plain``. CUDA tensors launch the CUDA
+    kernel with the identity ids (each entry's sums added onto the zero of
+    its own column) and add one to ``composite_bwd.launches``; any other
+    device raises. The kernel sums each entry's per-pixel terms with
+    shared-memory float atomics, so the last bits of a gradient vary between
+    runs."""
+    _check_bwd_inputs(e, range_start, range_end, final_t, latch, g_color4, g_t)
     if e.device.type == "cpu":
         return composite_bwd_plain(e, range_start, range_end, tiles_x, final_t, latch,
                                    g_color4, g_t, tile_row_offset)
-    if e.device.type != "cuda":
-        raise ValueError(f"composite_bwd runs on cpu or cuda tensors, not {e.device}")
-    args = (("e", e), ("range_start", range_start), ("range_end", range_end),
-            ("final_t", final_t), ("latch", latch), ("g_color4", g_color4), ("g_t", g_t))
-    for nm, t in args:
-        if not t.is_contiguous():
-            raise ValueError(f"{nm} must be contiguous")
     K = e.shape[1]
-    grads = torch.empty((N_FIELDS, K), dtype=torch.float32, device=e.device)
-    if T > 0:
-        order = torch.empty(T, dtype=torch.int32, device=e.device)  # filled by the launch
-        launch(composite_bwd, "composite_bwd", e.device, e, K, range_start, range_end, order,
-               T, tiles_x, tile_row_offset, final_t, latch, g_color4, g_t, grads)
-    return grads
+    return _launch_bwd(e, range_start, range_end, tiles_x, final_t, latch, g_color4, g_t,
+                       tile_row_offset, torch.arange(K, device=e.device), K)
+
+
+def composite_bwd_per_gaussian(e: torch.Tensor, s_gidx: torch.Tensor, n: int,
+                               range_start: torch.Tensor, range_end: torch.Tensor,
+                               tiles_x: int, final_t: torch.Tensor, latch: torch.Tensor,
+                               g_color4: torch.Tensor, g_t: torch.Tensor,
+                               tile_row_offset: int = 0) -> torch.Tensor:
+    """``composite_bwd``'s gradients summed per Gaussian: [10, n], column g
+    the sum over the sorted entries whose id ``s_gidx`` [K] int64 is g.
+
+    CPU tensors run ``composite_bwd_plain`` and ``sum_per_gaussian``. CUDA
+    tensors launch the same kernel as ``composite_bwd``, given ``s_gidx``:
+    it adds each entry's ten sums into its Gaussian's column with global
+    float atomics, skips the sums that are zero and never reads a static
+    buffer's tail, and adds one to ``composite_bwd.launches``. The order of
+    the additions varies, so the last bits of a gradient vary between
+    runs."""
+    _check_bwd_inputs(e, range_start, range_end, final_t, latch, g_color4, g_t)
+    if s_gidx.dtype != torch.int64 or tuple(s_gidx.shape) != (e.shape[1],) \
+            or s_gidx.device != e.device or not s_gidx.is_contiguous():
+        raise ValueError(f"s_gidx must be contiguous int64 [{e.shape[1]}] on {e.device}, got "
+                         f"{s_gidx.dtype} {tuple(s_gidx.shape)} on {s_gidx.device}")
+    if e.device.type == "cpu":
+        return sum_per_gaussian(composite_bwd_plain(e, range_start, range_end, tiles_x, final_t,
+                                                    latch, g_color4, g_t, tile_row_offset),
+                                s_gidx, n)
+    return _launch_bwd(e, range_start, range_end, tiles_x, final_t, latch, g_color4, g_t,
+                       tile_row_offset, s_gidx, n)
 
 
 class CompositeSorted(torch.autograd.Function):
@@ -367,9 +420,11 @@ class CompositeSorted(torch.autograd.Function):
     tiles_x[, tile_row_offset]) -> (color4 [T,256,4], final_T [T,256,1]),
     ``tile_row_offset`` 0 (the whole image) when left out. It saves the entry
     buffer, the entries' Gaussian ids, final_T and the latch. The backward
-    runs ``composite_bwd`` into per-entry gradients [10, K] and sums them
-    per Gaussian into [10, N] with one ``index_add_`` (``sum_per_gaussian``:
-    a static buffer's tail, whose ids are N, lands in a dropped row). (The JAX package's
+    is ``composite_bwd_per_gaussian`` into [10, N]: on CUDA one launch of
+    B3, which adds each entry's gradient into its Gaussian's column (a
+    static buffer's tail is never read), with no per-entry buffer; on the
+    CPU the plain backward and one ``index_add_`` (``sum_per_gaussian``: the
+    tail's scratch ids land in dropped rows). (The JAX package's
     scatter-free prefix difference, ``segment_reduce_emission``, exists
     because XLA's scatter-add is serial on a TPU; it is not ported.) On
     CUDA the sum uses float atomics, so its last bits vary between runs."""
@@ -388,9 +443,9 @@ class CompositeSorted(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_color4, g_t):
         e, s_gidx, range_start, range_end, final_t, latch = ctx.saved_tensors
-        g_entries = composite_bwd(e, range_start, range_end, ctx.tiles_x, final_t, latch,
-                                  g_color4.contiguous(), g_t.contiguous(),
-                                  ctx.tile_row_offset)
-        dfields = sum_per_gaussian(g_entries, s_gidx, ctx.num_gaussians)
+        dfields = composite_bwd_per_gaussian(e, s_gidx, ctx.num_gaussians, range_start,
+                                             range_end, ctx.tiles_x, final_t, latch,
+                                             g_color4.contiguous(), g_t.contiguous(),
+                                             ctx.tile_row_offset)
         # (autograd drops the trailing None when tile_row_offset was left out)
         return dfields, None, None, None, None, None

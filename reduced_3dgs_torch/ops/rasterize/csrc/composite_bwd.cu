@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel _bwd_kernel
 // (reduced_3dgs_tpu/ops/rasterize/pallas_kernel.py:502-652, launched by
-// tile_composite_bwd, :655-717, from the custom VJP _cs_bwd, :794-806). See
+// tile_composite_bwd, :655-717, from the custom VJP _cs_bwd, :794-806), and
+// the per-Gaussian sum of its per-entry output. See
 // reduced_3dgs_torch/ops/rasterize/composite.py for the contract and for
 // composite_bwd_plain, the plain PyTorch version (autograd through the
 // forward) this kernel is held against.
@@ -62,20 +63,37 @@
 // keeps, so after 5 + 3 + 2 + 1 + 1 = 12 shuffles (instead of 50) each
 // value's warp sum sits in one owner lane, which adds it to the batch's
 // sums in shared memory (a float atomicAdd; eight warps add to each entry).
-// After the next barrier the batch's sums go to global memory, one write
-// per entry, no global atomics; the order of the shared additions varies,
-// so the last bits of a gradient may vary from run to run. Entries at or
-// after every pixel's latch are written as zeros.
+// After the next barrier the batch's sums are added into the gradient of
+// each entry's Gaussian: entry i's ten sums go to column ids[i] of grads
+// [10, n_out], one global float atomic (a reduction, no value returned) per
+// sum that is not zero. No Gaussian has two entries in one tile, so each
+// carries a whole (tile, Gaussian) sum. Entries at or after every pixel's
+// latch, and a static buffer's tail, are never read or written. The order
+// of the shared and global additions varies, so the last bits of a gradient
+// may vary from run to run. Given the identity ids and n_out = K, the
+// kernel gives the per-entry gradients, each sum added onto a zero.
+//
+// The output's layout was chosen by timing two (kernel_study.py's method:
+// median of 20 CUDA-event timings, two rounds; profiler device time; the
+// flagship scene, 1.25M Gaussians at 979 x 546, two views, the static
+// buffer of 10,380,288 and the exact one of 8.84-8.87M entries; NVIDIA H100
+// 80GB HBM3, 700 W). The per-entry design before it with PyTorch's
+// index_add_: 4.14-4.27 ms (the kernel 2.81-2.86 ms of device time, the
+// index_add_ 1.24-1.31). Scalar atomics into [10, N], the layout the
+// preprocess backward reads: 2.83-2.94 ms (the kernel 2.78-2.81). float4 and
+// float2 atomics into [N, 12] rows, three an entry, then an unpack kernel to
+// [10, N]: 2.83-2.95 ms (the kernel 2.75-2.77, the unpack 0.036). The
+// scalar form is the choice: the same time, no second kernel or launch, and
+// 50 MB of output against 110 MB (the per-entry design's 404-465 MB).
 //
 // kGroup entries could share one reduce-scatter (10 kGroup values over 32
 // lanes: 12 shuffles per entry for 1, 10.5 for 2, 10 for 3). 1 is the
-// choice: 62 registers and no spills, against 78 registers for 2 and 80
-// with 16 B of spills for 3, and neither is faster (kernel_study.py).
+// choice: 62 registers (59 since the per-Gaussian sum) and no spills,
+// against 78 registers for 2 and 80 with 16 B of spills for 3, and neither
+// is faster (kernel_study.py).
 //
-// Left for a later change: the per-Gaussian sum (an index_add_ over the
-// per-entry gradients in CompositeSorted.backward) fused into the kernel,
-// the gather e = fields10[:, s_gidx] fused into the staging, and fewer
-// instructions per visit.
+// Left for a later change: the gather e = fields10[:, s_gidx] fused into
+// the staging, and fewer instructions per visit.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -152,13 +170,13 @@ __device__ __forceinline__ int value_slot(int lane, bool& owner) {
 __global__ void __launch_bounds__(kPixels)
 composite_bwd_kernel(const float* __restrict__ e, int K,
                      const int* __restrict__ range_start,
-                     const int* __restrict__ range_end,
                      const int* __restrict__ tile_order, int tiles_x,
                      int tile_row_offset,
                      const float* __restrict__ final_t,
                      const int* __restrict__ latch,
                      const float4* __restrict__ g_color4,
                      const float* __restrict__ g_t,
+                     const long long* __restrict__ ids, int n_out,
                      float* __restrict__ grads) {
   __shared__ __align__(16) float stage[2][kBatch * kStride];
   // Per batch, the tile's sums of each entry's ten gradients.
@@ -173,7 +191,6 @@ composite_bwd_kernel(const float* __restrict__ e, int K,
   const float px = box.px;
   const float py = box.py;
   const int start = range_start[tile];
-  const int end = range_end[tile];
   const int pix = tile * kPixels + box.pixel;
   const int lat = latch[pix];
   const float4 g4 = g_color4[pix];
@@ -194,14 +211,6 @@ composite_bwd_kernel(const float* __restrict__ e, int K,
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) stop = max(stop, warp_stop[w]);
 
-  // Entries at or after every pixel's latch receive no gradient.
-  for (int idx = stop + tid; idx < end; idx += kPixels) {
-#pragma unroll
-    for (int f = 0; f < kFields; ++f) {
-      grads[static_cast<size_t>(f) * K + idx] = 0.0f;
-    }
-  }
-
   // Batch b holds entries [max(start, hi - kBatch), hi), hi = stop - b kBatch.
   auto stage_batch = [&](int hi, int buf) {
     const int lo = max(start, hi - kBatch);
@@ -215,7 +224,8 @@ composite_bwd_kernel(const float* __restrict__ e, int K,
     }
     __pipeline_commit();
   };
-  // Batch b's sums, from sums[buf], into grads; sums[buf] back to zero.
+  // Batch b's sums, from sums[buf], added into the gradient of each entry's
+  // Gaussian (a global float atomic per nonzero sum); sums[buf] back to zero.
   auto write_batch = [&](int b, int buf) {
     const int hi = stop - b * kBatch;
     const int lo = max(start, hi - kBatch);
@@ -223,7 +233,8 @@ composite_bwd_kernel(const float* __restrict__ e, int K,
     for (int i = tid; i < n * kFields; i += kPixels) {
       const int f = i / n;
       const int j = i % n;
-      grads[static_cast<size_t>(f) * K + lo + j] = sums[buf][j * kFields + f];
+      const float v = sums[buf][j * kFields + f];
+      if (v != 0.0f) atomicAdd(&grads[static_cast<size_t>(f) * n_out + ids[lo + j]], v);
       sums[buf][j * kFields + f] = 0.0f;
     }
   };
@@ -339,21 +350,24 @@ composite_bwd_kernel(const float* __restrict__ e, int K,
 // composites tile tile_order[i]); tiles_x and tile_row_offset: as for
 // composite_fwd; final_t: float32 [num_tiles, 256]; latch:
 // int32 [num_tiles, 256] (the forward kernel's); g_color4: float32
-// [num_tiles, 256, 4]; g_t: float32 [num_tiles, 256]; grads: float32
-// [10, K], every entry written.
+// [num_tiles, 256, 4]; g_t: float32 [num_tiles, 256]; ids: int64 [K], the
+// column of grads that each sorted entry's gradient is added into, read only
+// for the entries in a tile's range; grads: float32 [10, n_out], zeroed by
+// the caller, to which the launch adds.
 extern "C" int composite_bwd(const float* e, int K, const int* range_start,
                              const int* range_end, int* tile_order,
                              int num_tiles, int tiles_x, int tile_row_offset,
                              const float* final_t, const int* latch,
                              const float* g_color4, const float* g_t,
-                             float* grads, void* stream) {
+                             const long long* ids, int n_out, float* grads,
+                             void* stream) {
   if (num_tiles <= 0) return 0;
   const int err = tile_common::launch_tile_order(
       range_start, range_end, num_tiles, tile_order, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   composite_bwd_kernel<<<num_tiles, kPixels, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      e, K, range_start, range_end, tile_order, tiles_x, tile_row_offset, final_t, latch,
-      reinterpret_cast<const float4*>(g_color4), g_t, grads);
+      e, K, range_start, tile_order, tiles_x, tile_row_offset, final_t, latch,
+      reinterpret_cast<const float4*>(g_color4), g_t, ids, n_out, grads);
   return static_cast<int>(cudaGetLastError());
 }

@@ -263,15 +263,31 @@ def variants(parent_dir):
     return out
 
 
-# Launcher arguments that earlier designs lack, by position: the tile order
-# (the first design's launchers) and the band's tile row offset (every
-# design before the band viewport).
-_LATER_ARGUMENTS = {"tile_order": 4, "tile_row_offset": 7}
+# Launcher arguments that earlier designs lack: (the name that marks them in
+# a source, the launchers that take them (None: every one), their
+# positions). The tile order (the first design's launchers), the band's tile
+# row offset (every design before the band viewport), and B3's ids and
+# output width (every design before B3 summed per Gaussian; their per-entry
+# output is the identity ids' one).
+_LATER_ARGUMENTS = (("tile_order", None, (4,)), ("tile_row_offset", None, (7,)),
+                    ("n_out", ("composite_bwd",), (12, 13)))
+
+
+def _missing(source, text):
+    """{launcher of ``source``: the positions of the arguments ``text`` lacks}."""
+    out = {}
+    for symbol, src in _build.SOURCE_OF.items():
+        drop = {pos for name, symbols, positions in _LATER_ARGUMENTS
+                if name not in text and (symbols is None or symbol in symbols)
+                for pos in positions}
+        if src == source and drop:
+            out[symbol] = drop
+    return out
 
 
 class _Legacy:
-    """A library built from a source whose launchers lack some of the
-    arguments at positions ``drop``: passes the wrapper's calls on without
+    """A library built from a source whose launchers lack some arguments
+    (``drop``: launcher -> positions): passes the wrapper's calls on without
     them."""
 
     def __init__(self, lib, drop):
@@ -280,16 +296,16 @@ class _Legacy:
 
     def __getattr__(self, symbol):
         fn = getattr(self._lib, symbol)
-        if symbol not in _build.ARGTYPES:
+        if symbol not in self._drop:
             return fn
-        return lambda *args: fn(*(a for i, a in enumerate(args) if i not in self._drop))
+        drop = self._drop[symbol]
+        return lambda *args: fn(*(a for i, a in enumerate(args) if i not in drop))
 
 
 def build_all(items, directory):
     """Build every (label, source, text) at once; {label: (CDLL, ptxas usage)}."""
     jobs = {}
-    missing = {label: {pos for arg, pos in _LATER_ARGUMENTS.items() if arg not in text}
-               for label, _, text in items}
+    missing = {label: _missing(source, text) for label, source, text in items}
     for i, (label, source, text) in enumerate(items):
         src = os.path.join(directory, f"v{i}_{source}.cu")
         lib = os.path.join(directory, f"libv{i}.so")
@@ -309,10 +325,9 @@ def build_all(items, directory):
                 getattr(cdll, fn).argtypes = (ctypes.c_void_p, ctypes.c_int)
                 getattr(cdll, fn).restype = ctypes.c_int
         if drop := missing[label]:
-            for symbol, src in _build.SOURCE_OF.items():
-                if src == source:
-                    getattr(cdll, symbol).argtypes = tuple(
-                        t for i, t in enumerate(_build.ARGTYPES[symbol]) if i not in drop)
+            for symbol, positions in drop.items():
+                getattr(cdll, symbol).argtypes = tuple(
+                    t for i, t in enumerate(_build.ARGTYPES[symbol]) if i not in positions)
             cdll = _Legacy(cdll, drop)
         built[label] = (cdll, _build.parse_ptxas(out))
     return built

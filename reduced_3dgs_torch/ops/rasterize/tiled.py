@@ -16,7 +16,9 @@ The pipeline is the CUDA rasterizer's:
      (tile, depth bits, Gaussian index);
   3. ``CompositeSorted`` gathers the entries' fields and composites each
      tile front to back (the CUDA kernel ``composite_fwd`` on the card); its
-     backward replays each tile back to front (``composite_bwd``). A render
+     backward replays each tile back to front and sums the gradient per
+     Gaussian (``composite_bwd_per_gaussian``: on the card one launch of the
+     CUDA kernel ``composite_bwd``). A render
      with statistics gathers the fields and runs ``composite_fwd_stats``
      instead, without autograd;
   4. ``_assemble_outputs`` stitches the tiles into the image.

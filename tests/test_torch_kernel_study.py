@@ -3,6 +3,8 @@ reader, the study's source copies, its warp layouts, and the warps' cull,
 whose float arithmetic (tile_common.cuh's may_touch, mirrored by
 kernel_study.may_touch) must never drop a pixel that the compositors' gate
 would blend."""
+import os
+
 import numpy as np
 import pytest
 
@@ -62,6 +64,19 @@ def test_every_study_copy_of_this_tree_applies():
         assert source in labels
         for name in names:
             assert f"{source}+{name}" in labels, name
+
+
+def test_older_sources_drop_the_arguments_they_lack():
+    """A B3 source from before the per-Gaussian sum drops its launcher's ids
+    and output width, a source without the tile order drops it from each of
+    its launchers, and this tree's sources drop nothing."""
+    assert kernel_study._missing("composite_bwd", "tile_order tile_row_offset") == {
+        "composite_bwd": {12, 13}}
+    assert kernel_study._missing("composite_fwd", "tile_row_offset") == {
+        "composite_fwd": {4}, "composite_fwd_stats": {4}}
+    for source in kernel_study.SOURCES:
+        with open(os.path.join(_build.CSRC_DIR, f"{source}.cu")) as f:
+            assert kernel_study._missing(source, f.read()) == {}, source
 
 
 def test_substitute_takes_the_first_alternative_that_applies():
