@@ -44,6 +44,7 @@ from ..dataset.camera import Camera
 from ..ops.rasterize.sweep import static_sweep, sweeps_statically
 from ..trainer import (AbstractDensifier, DensificationTrainer, DensifierWrapper,
                        NoopDensifier)
+from ..utils import profiling
 
 
 def count_render(model, camera: Camera) -> dict:
@@ -231,17 +232,27 @@ class ImportancePruner(DensifierWrapper):
         return self.fires(step) or super().fires_at(step)
 
     def densify_and_prune(self, loss, out, camera, step: int):
+        """The chain's instruction with this event's removal mask ORed in
+        where it fires: the sweep, the scores and the mask in the span
+        ``r3dgs.event.importance``, counted under ``events.importance`` and,
+        while a profiler records, tallied under ``events.importance.removed``:
+        an importance event alone holds no other tally, so the read would
+        be a host sync of its own."""
         ret = super().densify_and_prune(loss, out, camera, step)
         if self.fires(step):
             # A sharded engine sweeps over its own mesh; the engine's key
             # buffer sizes a static sweep.
             engine = self.trainer.engine
-            remove_mask = prune_gaussians(
-                self.trainer.model, self.dataset, self.resize, self.prune_type,
-                self.prune_percent, self.prune_thr_important_score,
-                self.prune_thr_v_important_score, self.prune_thr_max_v_important_score,
-                self.prune_thr_count, self.prune_thr_T_alpha, self.prune_thr_T_alpha_avg,
-                self.v_pow, mesh=getattr(engine, "mesh", None), engine=engine)
+            with profiling.span("event.importance", step=step):
+                remove_mask = prune_gaussians(
+                    self.trainer.model, self.dataset, self.resize, self.prune_type,
+                    self.prune_percent, self.prune_thr_important_score,
+                    self.prune_thr_v_important_score, self.prune_thr_max_v_important_score,
+                    self.prune_thr_count, self.prune_thr_T_alpha, self.prune_thr_T_alpha_avg,
+                    self.v_pow, mesh=getattr(engine, "mesh", None), engine=engine)
+                profiling.count("events.importance")
+                if profiling.recording():
+                    profiling.tally("events.importance.removed", remove_mask.sum())
             ret = ret.merge_remove(remove_mask)
         return ret
 

@@ -118,6 +118,7 @@ def static_sweep(model, cameras, make_body, make_accumulators, key_buffer=None,
     K = key_buffer or start_key_buffer(n, cam0)
     while True:
         profiling.count("sweep.passes")
+        profiling.count("sweep.views", len(cameras))
         with profiling.span("sweep_pass", views=len(cameras), K=K):
             acc = make_accumulators()
             body = make_body(K, acc)

@@ -55,6 +55,10 @@ The program's spans:
   r3dgs.knn                ``ops.knn.knn`` (wherever it is called) and
   r3dgs.redundancy         the pixel size over the cameras, the intersection,
                            the minimum allocation and the mercy policy
+  r3dgs.event.importance   inside ``event.densify``: the importance prune's
+                           sweep over every view, its scores and its mask
+                           (``ImportancePruner.densify_and_prune``), holding
+                           ``r3dgs.sweep_pass``
   r3dgs.event.apply        inside ``event.densify``: the instruction applied,
                            its rows gathered and the state installed
                            (``DensificationTrainer.apply_instruction``)
@@ -89,15 +93,20 @@ at the end of a run. The program's counters:
   graph.captures, graph.capture_ms   CUDA graphs captured, and their wall ms
   sweep.passes, sweep.regrows        static sweep passes, and the passes that
                            overflowed and doubled the sweep's buffer
+  sweep.views              the views those passes rendered, each pass's first
+                           (eager) view included
   events.<kind>, events.<kind>.added, events.<kind>.removed   events applied,
                            and the Gaussians they added and removed
   events.clone.added, events.split.added   the rows a densify event's clones
                            and split children add (their sum is
                            ``events.densify.added``)
-  events.prune.removed, events.mercy.removed   the rows the opacity and size
-                           mask and the mercy mask remove, each over the rows
-                           before the event (a row may be in both, and in the
-                           split's sources)
+  events.prune.removed, events.mercy.removed, events.importance.removed
+                           the rows the opacity and size mask, the mercy mask
+                           and the importance mask remove, each over the rows
+                           before the event (a row may be in more than one,
+                           and in the split's sources)
+  events.importance        importance prunes computed; their removed rows
+                           are tallied only while a profiler records
   knn.points               the points ``ops.knn.knn`` searched
 """
 from __future__ import annotations
