@@ -177,6 +177,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
            a share of the card's 3.35 TB/s. Their launches, like the
            preprocess kernels', are those of phases 11, 14, 15 and 16, which
            hold them to their renders: one of each a render
+  phase 19 the Adam kernel (csrc/adam.cu) alone: one step against the
+           plain version (relative norm gap of every p, m and v, bar 1e-6)
+           at 1,250,000 Gaussians (59 floats each, the six parameters'
+           shapes, xyz's rate a 0-d tensor: the 16-byte path), at 627,001
+           (the scalar tail of sizes that are no multiple of 4) and on a
+           camera's state (rot and trans, float rates); at 1,250,000, in ms
+           (CUDA events, the L2 flushed before each call) the kernel's step,
+           the plain version's and PyTorch's fused multi-tensor Adam's
+           (torch._fused_adam_, one call a learning rate, its float step
+           counts advanced by one _foreach_add_), and the kernel's step over
+           ten back to back; the device time and launches of each under
+           torch.profiler, the L2 flushed before each call, against the
+           bound (28 B a float at 3.35 TB/s); the fused Adam's gap to the
+           plain version. The kernel's launches, like the preprocess
+           kernels', are those of phases 11, 14, 15 and 16, which hold them
+           to the steps taken: one a step of each optimizer state, so one
+           a flagship step and two a camera step (phases 6 holds them so
+           too)
 
 Phases 0-14 run with R3DGS_WINDOW=1 (one step per trainer.step call, which
 their checks wrap); phase 15 sets 16 for its training run. The kernels
@@ -1841,7 +1859,8 @@ def camera_phase(card, params_p, src, wrappers, tmp, dense_config, flagship_ms):
         f"angle in rad) {poses}")
     expected = {"composite_fwd": FLAGSHIP_STEPS, "composite_bwd": FLAGSHIP_STEPS,
                 "composite_fwd_stats": N_VIEWS * (len(F_IMPORTANCE) + 2 * len(F_CULL))}
-    expected = preprocess_expected(expected)
+    # A camera step steps two optimizer states: the Gaussians' and its view's.
+    expected = preprocess_expected(expected, adam=2 * FLAGSHIP_STEPS)
     if launches != expected:
         failures.append(f"train.main --mode {CAMERA_MODE} launched {launches}, expected "
                         f"{expected}")
@@ -1876,9 +1895,9 @@ def camera_phase(card, params_p, src, wrappers, tmp, dense_config, flagship_ms):
         log(f"phase 11 [{card}]: camera gradient on {where} in {step_s:.2f} s, launches "
             f"{counts}")
         if where.type == "cuda" and counts != preprocess_expected(
-                {"composite_fwd": 1, "composite_fwd_stats": 0, "composite_bwd": 1}):
+                {"composite_fwd": 1, "composite_fwd_stats": 0, "composite_bwd": 1}, adam=2):
             failures.append("the card's camera step did not launch B1, B3 and the preprocess "
-                            "kernels once each")
+                            "kernels once each and the Adam kernel twice")
     gk, gc = (torch.cat([g["rot"], g["trans"]]) for g in grads)
     scale = float(gc.abs().max())
     excess = (gk - gc).abs() - (GCAM_ATOL * scale + GCAM_RTOL * gc.abs())
@@ -2499,23 +2518,25 @@ def counted(wrappers, fn):
 
 
 def with_preprocess(wrappers):
-    """The compositors' ``wrappers``, the preprocess kernels' and the
-    binning kernels'."""
+    """The compositors' ``wrappers``, the preprocess kernels', the binning
+    kernels' and the Adam kernel's."""
     from reduced_3dgs_torch.ops.rasterize import binning_kernel as bk
     from reduced_3dgs_torch.ops.rasterize import preprocess_kernel as pk
+    from reduced_3dgs_torch.trainer import optimizer
     return dict(wrappers, preprocess_fwd=pk.preprocess_fwd, preprocess_bwd=pk.preprocess_bwd,
-                bin_count=bk.bin_count, bin_sort=bk.bin_sort)
+                bin_count=bk.bin_count, bin_sort=bk.bin_sort, adam_fused=optimizer.adam_fused)
 
 
-def preprocess_expected(expected):
+def preprocess_expected(expected, adam=0):
     """The compositors' ``expected`` launches with the preprocess and
-    binning kernels' they imply: each render's preprocess launches the
-    forward kernel once and its binning each binning kernel once before its
-    compositor (B1 or B2), and each backward through B3 launches the
-    backward kernel once."""
+    binning kernels' they imply, and ``adam`` of the Adam kernel (the Adam
+    steps taken times the optimizer states a step steps): each render's
+    preprocess launches the forward kernel once and its binning each binning
+    kernel once before its compositor (B1 or B2), and each backward through
+    B3 launches the backward kernel once."""
     renders = expected["composite_fwd"] + expected["composite_fwd_stats"]
     return dict(expected, preprocess_fwd=renders, preprocess_bwd=expected["composite_bwd"],
-                bin_count=renders, bin_sort=renders)
+                bin_count=renders, bin_sort=renders, adam_fused=adam)
 
 
 def band_phase(card, params, params_p, camera, loss_cam, gt, wrappers):
@@ -2870,7 +2891,7 @@ def convergence_phase(card, wrappers, tmp):
     passes = sweeps + regrows.count
     expected = preprocess_expected({
         "composite_fwd": 2 * iters + n_cams + (1 + len(rows) + 1) * eval_views,
-        "composite_fwd_stats": n_cams * passes, "composite_bwd": 2 * iters})
+        "composite_fwd_stats": n_cams * passes, "composite_bwd": 2 * iters}, adam=2 * iters)
     log(f"phase 14: event steps {json.dumps(events)}; baseline's "
         f"{json.dumps({k: (v[0], v[-1], len(v)) for k, v in watch['events']['baseline'].items() if v})} "
         f"(first, last, count); sweep passes {passes} for {sweeps} sweeps ({regrows.count} "
@@ -3245,7 +3266,8 @@ def window_phase(card, params_p, src, wrappers, tmp, dense_config):
             failures.append(f"N moved in the window ending after step {first + k - 1}")
     expected = preprocess_expected({
         "composite_fwd": FLAGSHIP_STEPS, "composite_bwd": FLAGSHIP_STEPS,
-        "composite_fwd_stats": len(dataset) * (len(F_IMPORTANCE) + 2 * len(F_CULL))})
+        "composite_fwd_stats": len(dataset) * (len(F_IMPORTANCE) + 2 * len(F_CULL))},
+        adam=FLAGSHIP_STEPS)
     if launches != expected:
         failures.append(f"launched {launches}, expected {expected}")
     if len(values) != FLAGSHIP_STEPS or not all(map(math.isfinite, values)):
@@ -3814,6 +3836,196 @@ def binning_phase(card, launches_by_phase):
             for name, key in (("bin_count", "count"), ("bin_sort", "sort"))]
 
 
+ADAM_SHAPES = {"xyz": (3,), "features_dc": (1, 3), "features_rest": (15, 3), "scaling": (3,),
+               "rotation": (4,), "opacity": (1,)}
+ADAM_CAMERA_SHAPES = {"rot": (4,), "trans": (3,)}
+# The Gaussians of a state whose sizes are no multiple of 4 (the densify
+# cell's N is of this order).
+ADAM_ODD_N = 627_001
+# Bytes an Adam step moves a float: p, g, m and v read, p, m and v written.
+ADAM_BYTES_PER_FLOAT = 28
+# Relative norm gap of each p, m and v between the kernel and the plain version.
+ADAM_REL_GAP = 1e-6
+# A buffer twice the 50 MB L2, written before a timed call to flush it.
+L2_FLUSH_BYTES = 2 * 50 * 2 ** 20
+
+
+def adam_inputs(shapes, n, lrs, seed, dev):
+    """(params with gradients, an AdamState at count 20,000, ``lrs``) with
+    random values, the moments as after some steps (v > 0); ``n`` rows, or
+    the shapes alone where ``n`` is None."""
+    from reduced_3dgs_torch.trainer import optimizer
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(shape, scale):
+        return scale * torch.randn(shape, device=dev, generator=gen)
+
+    params = {k: torch.nn.Parameter(rand(tail if n is None else (n, *tail), 1.0))
+              for k, tail in shapes.items()}
+    for p in params.values():
+        p.grad = rand(p.shape, 1e-2)
+    state = optimizer.AdamState(count=optimizer.adam_count(20_000, dev),
+                                m={k: rand(p.shape, 1e-3) for k, p in params.items()},
+                                v={k: rand(p.shape, 1e-3).square() for k, p in params.items()})
+    return params, state, lrs
+
+
+def adam_copy(params, state):
+    """Clones of ``params`` (sharing their gradients) and of ``state``."""
+    from reduced_3dgs_torch.trainer import optimizer
+    ref = {k: torch.nn.Parameter(p.detach().clone()) for k, p in params.items()}
+    for k, p in ref.items():
+        p.grad = params[k].grad
+    return ref, optimizer.AdamState(count=state.count.clone(),
+                                    m={k: t.clone() for k, t in state.m.items()},
+                                    v={k: t.clone() for k, t in state.v.items()})
+
+
+def adam_gaps(update, params, state, lrs):
+    """One step of ``update`` on clones of ``params`` and ``state`` against
+    one of the plain version on others: {"<name>.<p|m|v>": relative norm
+    gap}."""
+    from reduced_3dgs_torch.trainer import optimizer
+    (a, a_state), (b, b_state) = adam_copy(params, state), adam_copy(params, state)
+    update(a, a_state, lrs)
+    optimizer.adam_plain(b, b_state, lrs)
+    return {f"{k}.{which}": float((x.detach() - y.detach()).norm() / y.detach().norm())
+            for k in params
+            for which, x, y in (("p", a[k], b[k]), ("m", a_state.m[k], b_state.m[k]),
+                                ("v", a_state.v[k], b_state.v[k]))}
+
+
+def library_adam(params, state, lrs, b1=0.9, b2=0.999, eps=1e-15):
+    """``adam_update``'s step by PyTorch's fused multi-tensor Adam
+    (``torch._fused_adam_``, what ``torch.optim.Adam(fused=True)`` calls),
+    one call a learning rate, on float step counts kept beside ``state``
+    (advanced by one ``_foreach_add_``, as torch.optim.Adam does). Returns
+    the step function."""
+    names = list(params)
+    steps = [state.count.to(torch.float32).clone() for _ in names]
+    groups = {}
+    for name, step in zip(names, steps):
+        lr = lrs[name]
+        key = ("tensor", id(lr)) if isinstance(lr, torch.Tensor) else ("float", lr)
+        groups.setdefault(key, (lr, []))[1].append((name, step))
+
+    def step_fn(p=params, st=state):
+        torch._foreach_add_(steps, 1)
+        for lr, members in groups.values():
+            torch._fused_adam_([p[k] for k, _ in members], [p[k].grad for k, _ in members],
+                               [st.m[k] for k, _ in members], [st.v[k] for k, _ in members],
+                               [], [t for _, t in members], lr=lr, beta1=b1, beta2=b2,
+                               weight_decay=0.0, eps=eps, amsgrad=False, maximize=False)
+    return step_fn, len(groups)
+
+
+def adam_phase(card):
+    """Phase 19 (see the module docstring). Returns the kernel's record for
+    the last line but its launches."""
+    from reduced_3dgs_torch.trainer import optimizer
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    n = PREPROCESS_LARGE_N
+    gaussian_lrs = {"xyz": torch.tensor(1.6e-6, device=dev), "features_dc": 0.0025,
+                    "features_rest": 0.0025 / 20, "scaling": 0.005, "rotation": 0.001,
+                    "opacity": 0.05}
+
+    # One step of the kernel against the plain version from the same state:
+    # the 16-byte path, the scalar tail and a camera's state.
+    gaps = {}
+    for what, shapes, rows, lrs in (
+            (f"N={n}", ADAM_SHAPES, n, gaussian_lrs),
+            (f"N={ADAM_ODD_N}", ADAM_SHAPES, ADAM_ODD_N, gaussian_lrs),
+            ("camera", ADAM_CAMERA_SHAPES, None, {"rot": 1e-5, "trans": 1e-3})):
+        params, state, lrs = adam_inputs(shapes, rows, lrs, 19, dev)
+        gaps[what] = adam_gaps(optimizer.adam_fused, params, state, lrs)
+        del params, state
+    worst = {what: max(g.values()) for what, g in gaps.items()}
+    log(f"phase 19 [{card}]: Adam kernel against the plain version, one step from the same "
+        f"state: largest relative norm gap by state {json.dumps(worst)} (bar {ADAM_REL_GAP}); "
+        f"by tensor {json.dumps(gaps)}")
+    if not max(worst.values()) <= ADAM_REL_GAP:
+        raise AssertionError(f"phase 19: the Adam kernel left the plain version: {worst}")
+
+    params, state, lrs = adam_inputs(ADAM_SHAPES, n, gaussian_lrs, 19, dev)
+    floats = sum(p.numel() for p in params.values())
+    library, library_calls = library_adam(params, state, lrs)
+    library_gaps = adam_gaps(lambda p, st, r: library_adam(p, st, r)[0](), params, state, lrs)
+    library_gap = max(library_gaps.values())
+    flush_buffer = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buffer.zero_()
+
+    def fused():
+        optimizer.adam_fused(params, state, lrs)
+
+    def plain():
+        optimizer.adam_plain(params, state, lrs)
+
+    calls = 10
+    fused_ms = cuda_ms(fused, setup=flush)
+    back_to_back_ms = cuda_ms(lambda: [fused() for _ in range(calls)], repeats=5) / calls
+    plain_ms = cuda_ms(plain, setup=flush, repeats=10)
+    library_ms = cuda_ms(library, setup=flush, repeats=10)
+    library_back_to_back_ms = cuda_ms(lambda: [library() for _ in range(calls)], repeats=5) / calls
+
+    flush_launches, flush_ms = device_busy(flush, calls=5)[:2]
+
+    def profiled(fn):
+        """(device kernels a call, device ms a call), the flush's taken off."""
+        launched, busy = device_busy(lambda: (flush(), fn()), calls=5)[:2]
+        return launched - flush_launches, busy - flush_ms
+
+    _, _, _, top, by_name = device_busy(lambda: (flush(), fused()), calls=calls)
+    recorded = sum(count for key, count, _ in top if "adam_kernel" in key)
+    device_ms = kernel_device_ms(by_name, "adam_kernel") if recorded == 1 else None
+    plain_launches, plain_device_ms = profiled(plain)
+    library_launches, library_device_ms = profiled(library)
+    nbytes = ADAM_BYTES_PER_FLOAT * floats
+    bound = nbytes / DRAM_BYTES_PER_S * 1e3
+    # A profile that lost launches reads a fraction of a kernel a call, or
+    # less time than the bytes take.
+    if library_launches != int(library_launches) or library_device_ms < bound:
+        library_text = f"not measured (the profiler kept {library_launches:g} kernels a call)"
+        library_device_ms = None
+    else:
+        library_text = (f"{library_device_ms:.4f} ms ({100 * bound / library_device_ms:.1f}% "
+                        f"of the bound)")
+    # The profiler has been seen to keep only some of a window's launches of
+    # this kernel late in a long run: a reading is kept only when it holds
+    # each call's launch.
+    device_text = (f"not measured (the profiler kept {recorded} launches a call, of 1)"
+                   if device_ms is None else "not measured (the profiler saw no device time)")
+    if device_ms:
+        device_text = (f"{device_ms:.4f} ms ({100 * bound / device_ms:.1f}% of the bound, "
+                       f"{nbytes / (device_ms * 1e-3) / 1e12:.3f} TB/s)")
+    log(f"phase 19 [{card}]: Adam over N={n} ({floats} floats, {nbytes / 1e9:.3f} GB at "
+        f"{ADAM_BYTES_PER_FLOAT} B a float): kernel step {fused_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch._fused_adam_ ({library_calls} calls a step) "
+        f"{library_ms:.4f} ms (CUDA events, the L2 flushed before each call); over {calls} "
+        f"steps back to back the kernel {back_to_back_ms:.4f} ms a step "
+        f"({100 * bound / back_to_back_ms:.1f}% of the bound), torch._fused_adam_ "
+        f"{library_back_to_back_ms:.4f} ({100 * bound / library_back_to_back_ms:.1f}%); "
+        f"bound {bound:.4f} ms at "
+        f"{DRAM_BYTES_PER_S / 1e12:.2f} TB/s; device time under the profiler, the L2 "
+        f"flushed: adam_kernel {device_text}; the plain version's {plain_launches:g} kernels "
+        f"{plain_device_ms:.4f} ms; torch._fused_adam_'s {library_launches:g} kernels "
+        f"{library_text}; its relative norm gap to the plain version by tensor "
+        f"{json.dumps(library_gaps)}")
+    del params, state, flush_buffer, library
+    torch.cuda.empty_cache()
+    log(f"phase 19 [{card}]: {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "adam_fused", "route": "cuda",
+            "source": "reduced_3dgs_torch/ops/rasterize/csrc/adam.cu", "replaces": None,
+            "max_rel_norm_err": max(worst.values()), "ms": fused_ms, "device_ms": device_ms,
+            "back_to_back_ms": back_to_back_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": library_ms, "library_back_to_back_ms": library_back_to_back_ms,
+            "library_device_ms": library_device_ms,
+            "library_launches": library_launches, "library_max_rel_norm_err": library_gap}
+
+
 def card_name():
     from reduced_3dgs_torch.tools.convergence_proof import smi_line
     line = smi_line()
@@ -4189,10 +4401,10 @@ def run(tmp):
     if not last < first:
         raise AssertionError("training did not reduce the loss")
     if launches != preprocess_expected({"composite_fwd": TRAIN_STEPS, "composite_fwd_stats": 0,
-                                        "composite_bwd": TRAIN_STEPS}):
+                                        "composite_bwd": TRAIN_STEPS}, adam=TRAIN_STEPS):
         raise AssertionError(f"training launched {launches}, expected {TRAIN_STEPS} of the "
-                             "forward and backward compositors and preprocess kernels and no "
-                             "statistics compositor")
+                             "forward and backward compositors, preprocess kernels and Adam "
+                             "kernel and no statistics compositor")
     saved = VariableSHGaussianModel(3, device=dev).load_ply(
         os.path.join(out_dir, "point_cloud", f"iteration_{TRAIN_STEPS}", "point_cloud.ply"))
     finite = all(bool(torch.isfinite(p).all()) for p in saved.param_dict().values())
@@ -4352,6 +4564,11 @@ def run(tmp):
     # ---------------------------------------------------------------- phase 18
     binning_records = binning_phase(card, launches_by_phase)
 
+    # ---------------------------------------------------------------- phase 19
+    adam_record = dict(adam_phase(card),
+                       launches=sum(launches_by_phase["adam_fused"].values()),
+                       launches_by_phase=launches_by_phase["adam_fused"])
+
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "composite_fwd",
@@ -4392,7 +4609,7 @@ def run(tmp):
         "bound_ms": bwd_bound,
         "bound_by": bwd_bound_by,
         "library_ms": None,
-    }] + preprocess_records + binning_records}))
+    }] + preprocess_records + binning_records + [adam_record]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

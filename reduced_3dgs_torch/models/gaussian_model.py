@@ -109,9 +109,13 @@ class GaussianModel(nn.Module):
     @torch.no_grad()
     def set_parameters(self, params: Dict[str, torch.Tensor]):
         """Replace the six parameters with new ``nn.Parameter``s holding
-        ``params`` (their row count may differ from the current one)."""
+        ``params`` (their row count may differ from the current one), each
+        contiguous whatever its source's layout (a PLY's SH rows arrive
+        transposed): Adam's moments are contiguous, and its kernel takes
+        parameters and gradients of their layout alone."""
         for name in PARAM_NAMES:
-            setattr(self, f"_{name}", nn.Parameter(params[name].detach().clone()))
+            setattr(self, f"_{name}", nn.Parameter(
+                params[name].detach().clone(memory_format=torch.contiguous_format)))
         return self
 
     def aux_state(self) -> Dict[str, torch.Tensor]:

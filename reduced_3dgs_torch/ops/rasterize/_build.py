@@ -69,18 +69,25 @@ ARGTYPES = {
     #              ends, tiles_a, tiles_b, gid_a, gid_b, scratch, scratch_bytes, s_tile,
     #              s_gidx, valid, overflow, range_start, range_end, stream)
     "binning_sort": (*(_i,) * 8, *(_p,) * 15, ctypes.c_longlong, *(_p,) * 7),
+    # adam_fused(n, sizes, arrays, lr_at, lrs, count, b1, c1, b2, c2, eps, stream):
+    # sizes, arrays (p, g, m, v of each tensor), lr_at and lrs are host arrays
+    "adam_fused": (_i, *(_p,) * 5, *(_f,) * 5, _p),
 }
 # The source (csrc/<name>.cu, and the library built from it) of each symbol.
 SOURCE_OF = {"composite_fwd": "composite_fwd", "composite_fwd_stats": "composite_fwd",
              "composite_bwd": "composite_bwd", "preprocess_fwd": "preprocess",
              "preprocess_bwd": "preprocess", "binning_scratch_bytes": "binning",
-             "binning_count": "binning", "binning_sort": "binning"}
+             "binning_count": "binning", "binning_sort": "binning", "adam_fused": "adam"}
 SOURCES = tuple(sorted(set(SOURCE_OF.values())))
+# Tensors one launch of the Adam kernel takes (csrc/adam.cu's kMaxTensors).
+ADAM_MAX_TENSORS = 8
 # nvcc flags of one source beside NVCC_FLAGS. The preprocess rounds every
 # product and sum on its own, as the plain version does (no contraction into
 # fused multiply-adds), so that the near cull and the integer rectangles
-# follow the plain version's bits.
-SOURCE_FLAGS = {"preprocess": ("-fmad=false",)}
+# follow the plain version's bits. The Adam kernel's tensor limit is
+# defined here alone.
+SOURCE_FLAGS = {"preprocess": ("-fmad=false",),
+                "adam": (f"-DADAM_MAX_TENSORS={ADAM_MAX_TENSORS}",)}
 
 
 def nvcc_flags(name: str) -> tuple:

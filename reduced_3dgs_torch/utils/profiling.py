@@ -72,7 +72,8 @@ the event is applied.
 ``counters()`` returns a copy of it with the kernels' launch tallies
 (``<module>.<wrapper>.launches`` of each wrapper ``ops/rasterize/launches``
 counts: ``composite.composite_fwd`` and the other compositors,
-``preprocess_kernel.preprocess_fwd`` and ``.preprocess_bwd``), and
+``preprocess_kernel.preprocess_fwd`` and ``.preprocess_bwd``, the binning's,
+``optimizer.adam_fused``: one an Adam step of each optimizer state), and
 ``reset_counters()`` clears it. ``train.training`` prints them in one line
 at the end of a run. The program's counters:
 
@@ -228,6 +229,7 @@ def counters() -> Dict[str, float]:
     """A copy of the counters, with the kernels' launch tallies."""
     # The kernels' modules register their wrappers when they are imported.
     from ..ops.rasterize import binning_kernel, composite, launches, preprocess_kernel  # noqa: F401
+    from ..trainer import optimizer  # noqa: F401
     out = dict(_counters)
     for wrapper in launches.wrappers():
         module = wrapper.__module__.rsplit(".", 1)[-1]

@@ -3,7 +3,9 @@ replay (``ops/rasterize/launches.py``), on the CPU with a stub library and
 a stubbed stream: ``launch`` passes tensors as their addresses in the
 launcher's order, raises on a CUDA error naming the launcher and counts
 nothing then, and counts a launch on the wrapper, or in the capture's tally
-while the stream captures; ``CameraGraph`` clones the camera's tensor
+while the stream captures; the Adam kernel's wrapper sends each parameter's
+tensors in order, NULL for a missing gradient, and counts one launch, and a
+CPU state launches nothing; ``CameraGraph`` clones the camera's tensor
 fields, skips those that are None, and copies another camera's fields in
 before each replay, whose captured launches it counts."""
 import contextlib
@@ -71,6 +73,47 @@ def test_a_cuda_error_raises_and_counts_nothing(stub):
         launches.launch(composite.composite_fwd, "composite_bwd", "cuda:0", torch.zeros(1))
     assert composite.composite_fwd.launches == 0
     assert launches.captured_launches["composite_fwd"] == 0
+
+
+def test_adam_reaches_its_launcher_in_order(stub, monkeypatch):
+    """The Adam kernel's launcher is in the build's tables and its wrapper
+    among the registered ones; each parameter's p, gradient (NULL where it
+    has none), m and v reach the launcher in order with the sizes, the
+    learning rates by address or by value, the advanced count and the
+    betas, and the call counts one launch."""
+    from reduced_3dgs_torch.trainer import optimizer
+    assert _build.SOURCE_OF["adam_fused"] == "adam"
+    assert len(_build.ARGTYPES["adam_fused"]) == 12
+    assert optimizer.adam_fused in launches.wrappers()
+    monkeypatch.setattr(optimizer.adam_fused, "launches", 0)
+    params = {"a": torch.nn.Parameter(torch.zeros(5)),
+              "b": torch.nn.Parameter(torch.ones(2, 3))}
+    params["a"].grad = torch.ones(5)
+    state = optimizer.adam_init(params)
+    rate = torch.tensor(0.5)
+    optimizer.adam_fused(params, state, {"a": rate, "b": 0.25})
+    ((symbol, args),) = stub.calls
+    n, sizes, arrays, lr_at, lrs, count, *scalars, stream = args
+    assert (symbol, n, count, stream) == ("adam_fused", 2, state.count.data_ptr(), STREAM)
+    assert list(sizes) == [5, 6]
+    assert list(arrays) == [params["a"].data_ptr(), params["a"].grad.data_ptr(),
+                            state.m["a"].data_ptr(), state.v["a"].data_ptr(),
+                            params["b"].data_ptr(), None, state.m["b"].data_ptr(),
+                            state.v["b"].data_ptr()]
+    assert list(lr_at) == [rate.data_ptr(), None] and list(lrs)[1] == 0.25
+    assert scalars == [0.9, 1.0 - 0.9, 0.999, 1.0 - 0.999, 1e-15]
+    assert int(state.count) == 1 and optimizer.adam_fused.launches == 1
+    assert stub.loaded == ["adam"]
+
+
+def test_a_cpu_adam_update_launches_nothing(stub):
+    from reduced_3dgs_torch.trainer import optimizer
+    params = {"a": torch.nn.Parameter(torch.zeros(5))}
+    params["a"].grad = torch.ones(5)
+    state = optimizer.adam_init(params)
+    optimizer.adam_update(params, state, {"a": 0.5})
+    assert stub.calls == [] and stub.loaded == []
+    assert int(state.count) == 1 and bool((params["a"] < 0).all())
 
 
 @dataclasses.dataclass
